@@ -1,0 +1,236 @@
+"""Decode engine: one reconstruction path for every consumer.
+
+Reconstruction in IDEALEM (paper Sec. V-A2/V-B2) is per-block math: a hit
+is either a random permutation of its source block (std mode) or the
+stored transformed values re-anchored on the hit's own base (residual and
+delta; delta adds an in-block cumsum).  A :class:`DecodePlan` is the
+struct-of-arrays form of "what feeds each output block"; :func:`reconstruct`
+turns it into samples.
+
+Backends, all byte-identical:
+
+  ``numpy``  -- the host reference (fancy-index gather + vectorized math);
+  ``torch``  -- tensor gather / permutation apply / re-anchor / wrap on the
+                given device, the delta cumsum as the plain column loop;
+  ``cuda``   -- the same with the delta cumsum in the hand-written
+                ``kernels.seq_cumsum`` kernel.
+
+The device backends run on the device they are given or raise; there is no
+fallback to the host path.  Device shapes are padded to powers of two (pad
+rows are zero-payload misses the per-block math ignores).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..errors import StreamFormatError
+from .transforms import np_wrap_range, wrap_range
+
+__all__ = ["MODE_STD", "MODE_RESIDUAL", "MODE_DELTA", "BACKENDS",
+           "DecodePlan", "decode_sources", "hit_perms", "gather_rows",
+           "plan_from_parsed", "reconstruct"]
+
+MODE_STD, MODE_RESIDUAL, MODE_DELTA = 0, 1, 2
+
+#: Recognised ``backend=`` values.
+BACKENDS = ("numpy", "torch", "cuda")
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """Everything :func:`reconstruct` needs, as flat arrays.
+
+    ``payloads`` holds each *source* block's stored values once (misses in
+    stream order).  ``src[i]`` is the payload row feeding output block
+    ``i``; hits share their source miss's row.  ``block_idx[i]`` is the
+    block's global position in its stream: std-mode hit permutations are
+    keyed on ``(seed, block_idx)`` (:func:`hit_perms`).  ``no_perm``
+    (error-bounded streams) pins std-mode hits to the stored row order.
+    """
+
+    mode: int
+    block_size: int
+    dtype: np.dtype
+    value_range: Optional[Tuple[float, float]]
+    payloads: np.ndarray            # (n_rows, P) source payload rows
+    src: np.ndarray                 # (nb,) payload row per output block
+    bases: Optional[np.ndarray]     # (nb,) res/delta modes, else None
+    is_hit: np.ndarray              # (nb,) bool
+    block_idx: np.ndarray           # (nb,) global block positions
+    seed: int = 0
+    overwrite: Optional[np.ndarray] = None  # (nb,) bool, informational
+    no_perm: bool = False
+
+    @property
+    def nb(self) -> int:
+        return len(self.src)
+
+    @property
+    def payload_width(self) -> int:
+        return int(self.payloads.shape[1])
+
+
+# ------------------------------------------------------- plan construction
+
+def decode_sources(is_hit: np.ndarray, slot: np.ndarray) -> np.ndarray:
+    """Payload row (miss ordinal) feeding each block: misses feed
+    themselves, hits feed the most recent miss written to their slot.
+    A hit with no preceding miss on its slot is malformed input."""
+    nb = len(is_hit)
+    miss_pos = np.flatnonzero(~is_hit)
+    hit_pos = np.flatnonzero(is_hit)
+    src = np.zeros(nb, dtype=np.int64)
+    src[miss_pos] = np.arange(len(miss_pos))
+    if len(hit_pos):
+        hit_slots = slot[hit_pos]
+        miss_slots = slot[miss_pos]
+        for s in np.unique(hit_slots):
+            hp = hit_pos[hit_slots == s]
+            mp = miss_pos[miss_slots == s]
+            j = np.searchsorted(mp, hp) - 1
+            if len(mp) == 0 or np.any(j < 0):
+                raise StreamFormatError(f"hit on slot {s} before any miss")
+            src[hp] = src[mp[j]]
+    return src
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """SplitMix64 finalizer on uint64 arrays (wrapping arithmetic is the
+    point; numpy only flags the wrap for 0-d inputs)."""
+    with np.errstate(over="ignore"):
+        x = (x + np.uint64(0x9E3779B97F4A7C15)).astype(np.uint64)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def hit_perms(seed: int, block_idx: np.ndarray, B: int) -> np.ndarray:
+    """Per-hit reconstruction permutations, stateless in the block position:
+    the argsort of SplitMix64 keys of (seed, global sample index)."""
+    with np.errstate(over="ignore"):  # seed 2**64-1 wraps on the +1
+        s = _splitmix64(np.uint64(seed & 0xFFFFFFFFFFFFFFFF) + np.uint64(1))
+        samp = (np.asarray(block_idx, dtype=np.uint64)[:, None] * np.uint64(B)
+                + np.arange(B, dtype=np.uint64)[None, :])
+    return np.argsort(_splitmix64(samp ^ s), axis=1, kind="stable")
+
+
+def gather_rows(u8: np.ndarray, dt: np.dtype, offs: np.ndarray,
+                width: int) -> np.ndarray:
+    """One fancy-indexing pass over raw stream bytes: ``width``-value rows
+    at byte offsets ``offs``."""
+    if width == 0 or len(offs) == 0:
+        return np.zeros((len(offs), width), dtype=dt)
+    return u8[offs[:, None] + np.arange(width * dt.itemsize)].view(dt)
+
+
+def plan_from_parsed(header, parsed, seed: int = 0, i0: int = 0) -> DecodePlan:
+    """Plan for a full sequential decode of one parsed stream section;
+    block positions are ``i0..i0+nb``."""
+    nb = len(parsed.is_hit)
+    return DecodePlan(
+        mode=header.mode, block_size=header.block_size,
+        dtype=np.dtype(header.dtype), value_range=header.value_range,
+        payloads=parsed.payloads,
+        src=decode_sources(parsed.is_hit, parsed.slot),
+        bases=parsed.bases, is_hit=parsed.is_hit,
+        block_idx=i0 + np.arange(nb, dtype=np.int64), seed=seed,
+        overwrite=parsed.overwrite,
+        no_perm=bool(getattr(header, "error_bounded", False)))
+
+
+def _perm_hits(plan: DecodePlan) -> np.ndarray:
+    return (np.zeros(0, dtype=np.int64) if plan.no_perm
+            else np.flatnonzero(plan.is_hit))
+
+
+# ------------------------------------------------------------ numpy backend
+
+def _reconstruct_numpy(plan: DecodePlan) -> np.ndarray:
+    rows = plan.payloads[plan.src]          # fancy index: always a fresh copy
+    if plan.mode == MODE_STD:
+        out = rows
+        hit_pos = _perm_hits(plan)
+        if len(hit_pos):
+            perm = hit_perms(plan.seed, plan.block_idx[hit_pos],
+                             plan.block_size)
+            out[hit_pos] = np.take_along_axis(rows[hit_pos], perm, axis=1)
+        return out
+    base = plan.bases[:, None]
+    t = rows if plan.mode == MODE_RESIDUAL else np.cumsum(rows, axis=1)
+    out = np.concatenate([base, base + t], axis=1)
+    if plan.value_range is not None:
+        out = np_wrap_range(out, *plan.value_range)
+    return out
+
+
+# ----------------------------------------------------------- device backends
+
+def _pow2(n: int) -> int:
+    return max(1, 1 << (int(n) - 1).bit_length())
+
+
+def _run_device(plan: DecodePlan, backend: str,
+                device: torch.device) -> np.ndarray:
+    """Gather, permutation apply, re-anchor, (delta) sequential cumsum and
+    wrap on ``device``; shapes padded to powers of two."""
+    from ..kernels.seq_cumsum import seq_cumsum, seq_cumsum_torch
+
+    dt = np.dtype(plan.dtype)
+    nb, P = plan.nb, plan.payload_width
+    nbp, nrp = _pow2(nb), _pow2(len(plan.payloads) + 1)
+    payloads = np.zeros((nrp, P), dtype=dt)
+    payloads[:len(plan.payloads)] = plan.payloads
+    src = np.full(nbp, nrp - 1, dtype=np.int64)  # pads read the zero row
+    src[:nb] = plan.src
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    rows = dev(payloads).index_select(0, dev(src))
+    if plan.mode == MODE_STD:
+        perm = np.broadcast_to(np.arange(plan.block_size, dtype=np.int64),
+                               (nbp, plan.block_size)).copy()
+        hit_pos = _perm_hits(plan)
+        if len(hit_pos):
+            perm[hit_pos] = hit_perms(plan.seed, plan.block_idx[hit_pos],
+                                      plan.block_size)
+        out = torch.gather(rows, 1, dev(perm))
+    else:
+        bases = np.zeros(nbp, dtype=dt)
+        bases[:nb] = plan.bases
+        b = dev(bases)[:, None]
+        if plan.mode == MODE_RESIDUAL:
+            t = rows
+        elif backend == "cuda":
+            t = seq_cumsum(rows)
+        else:
+            t = seq_cumsum_torch(rows)
+        out = torch.cat([b, b + t], dim=1)
+        if plan.value_range is not None:
+            out = wrap_range(out, *plan.value_range)
+    return out[:nb].cpu().numpy()
+
+
+def reconstruct(plan: DecodePlan, backend: str = "cuda",
+                device=None) -> np.ndarray:
+    """Rebuild ``(nb, B)`` block values from a plan (paper Sec. V-A2/V-B2).
+
+    ``backend`` is ``"cuda"`` (default), ``"torch"`` or ``"numpy"`` (the
+    host reference, which ignores ``device``).  The tensor backends run on
+    ``device``, default ``"cuda"``, which raises without a GPU; ``"cuda"``
+    on a CPU device runs the kernel's plain version.  Every backend is
+    byte-identical.
+    """
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown decode backend {backend!r}; expected one "
+                         f"of {BACKENDS}")
+    if plan.nb == 0:
+        return np.zeros((0, plan.block_size), dtype=np.dtype(plan.dtype))
+    if backend == "numpy":
+        return _reconstruct_numpy(plan)
+    return _run_device(plan, backend, resolve_device(device))

@@ -1,0 +1,166 @@
+"""User-facing IDEALEM codec: orchestrates transform -> decisions -> stream.
+
+One-shot:
+
+>>> codec = IdealemCodec(mode="std", block_size=32, num_dict=255, alpha=0.01)
+>>> blob = codec.encode(x)            # x: 1-D numpy float array
+>>> y = codec.decode(blob)            # same length, statistically similar
+>>> codec.compression_ratio(x, blob)
+
+Streaming (chunked / multi-channel) goes through ``IdealemSession``, which
+keeps the FIFO dictionary alive between chunks:
+
+>>> s = codec.session()               # or codec.session(channels=C)
+>>> parts = [s.feed(chunk) for chunk in chunks] + [s.finish()]
+>>> y = codec.decode(b"".join(parts))
+
+Encode backends: ``"cuda"`` (the hand-written fused scan kernel, default),
+``"torch"`` (the plain tensor scan) and ``"numpy"`` (the sequential
+early-exit reference); all three are decision-identical.  Decode backends
+are ``core.decode.BACKENDS``.  Both run on ``device`` (default ``"cuda"``,
+an error when no GPU is present); ``device="cpu"`` runs the kernels' plain
+versions on the host.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import stream as stream_mod
+from .decode import BACKENDS as DECODE_BACKENDS
+from .encoder import MATCHERS
+from .ks import critical_distance
+from .session import IdealemSession
+from .stream import MODE_DELTA, MODE_RESIDUAL, MODE_STD
+from .transforms import np_wrap_centered
+
+__all__ = ["IdealemCodec", "ENCODE_BACKENDS"]
+
+_MODES = {"std": MODE_STD, "residual": MODE_RESIDUAL, "delta": MODE_DELTA}
+
+ENCODE_BACKENDS = ("numpy", "torch", "cuda")
+
+
+@dataclass
+class IdealemCodec:
+    mode: str = "std"
+    block_size: int = 32
+    num_dict: int = 255
+    alpha: float = 0.01
+    rel_tol: float = 0.1
+    use_minmax: bool = True
+    use_ks: bool = True
+    max_count: int = 255
+    value_range: Optional[Tuple[float, float]] = None
+    backend: str = "cuda"
+    # encode matcher for the tensor backends: None keeps the backend default
+    # (torch -> reference scan, cuda -> fused kernel), or "reference"/"fused"
+    matcher: Optional[str] = None
+    decode_seed: int = 0
+    decode_backend: str = "cuda"
+    device: str = "cuda"
+    # not ported yet: set only to be told where they stand
+    error_bound: Optional[float] = None
+    adaptive: bool = False
+    d_crit: float = field(init=False)
+    torch_device: torch.device = field(init=False)
+
+    def __post_init__(self):
+        if self.mode not in _MODES:
+            raise ValueError(f"mode must be one of {list(_MODES)}")
+        if self.backend not in ENCODE_BACKENDS:
+            raise ValueError(f"backend must be one of {ENCODE_BACKENDS}")
+        if self.decode_backend not in DECODE_BACKENDS:
+            raise ValueError(
+                f"decode_backend must be one of {DECODE_BACKENDS}")
+        if self.matcher in ("ops", "auto"):
+            raise ValueError(
+                f"matcher={self.matcher!r} is not ported yet: 'ops' waits "
+                "for the dict_match kernel (ROADMAP Queue 2, K3), 'auto' for "
+                "the measured tuner (ROADMAP Queue 1 item 4)")
+        if self.matcher is not None and self.matcher not in MATCHERS:
+            raise ValueError(f"matcher must be None or one of {MATCHERS}")
+        if self.error_bound is not None:
+            raise ValueError("error-bounded mode is not ported yet (ROADMAP "
+                             "Queue 1 item 5)")
+        if self.adaptive:
+            raise ValueError("adaptive mode selection is not ported yet "
+                             "(ROADMAP Queue 1 item 6)")
+        if not (1 <= self.num_dict <= 255):
+            raise ValueError("num_dict must be in [1, 255]")
+        if not (1 <= self.max_count <= 255):
+            raise ValueError("max_count must be in [1, 255]")
+        if self.block_size < 2:
+            raise ValueError("block_size must be >= 2")
+        n = self._lem_n()
+        self.d_crit = critical_distance(self.alpha, n, n)
+        self.torch_device = resolve_device(self.device)
+
+    # ------------------------------------------------------------- internals
+    @property
+    def mode_id(self) -> int:
+        return _MODES[self.mode]
+
+    def _lem_n(self) -> int:
+        return self.block_size if self.mode == "std" else self.block_size - 1
+
+    def _transform(self, blocks: np.ndarray):
+        """Returns (payload for LEM+stream, bases or None). Host-side."""
+        if self.mode == "std":
+            return blocks, None
+        bases = blocks[:, 0].copy()
+        if self.mode == "residual":
+            t = blocks[:, 1:] - bases[:, None]
+        else:
+            t = np.diff(blocks, axis=1)
+        if self.value_range is not None:
+            t = np_wrap_centered(t, *self.value_range)
+        return t, bases
+
+    # ------------------------------------------------------------ public API
+    def session(self, channels: Optional[int] = None,
+                emit_segments: bool = True, dtype=np.float64, plan=None,
+                container: bool = False) -> IdealemSession:
+        """Open a resumable streaming session with this configuration
+        (``plan`` and ``container`` are not ported yet and raise)."""
+        return IdealemSession(self, channels=channels,
+                              emit_segments=emit_segments, dtype=dtype,
+                              plan=plan, container=container)
+
+    def encode(self, x: np.ndarray) -> bytes:
+        """One-shot encode: a single-feed session assembled as one segment."""
+        x = np.ascontiguousarray(x)
+        if x.ndim != 1:
+            raise ValueError(
+                "IdealemCodec.encode compresses 1-D arrays; use "
+                "codec.session(channels=C) for batched multi-channel streams")
+        s = IdealemSession(self, emit_segments=False, dtype=x.dtype)
+        s.feed(x)
+        return s.finish()
+
+    def decode(self, blob: bytes, backend: Optional[str] = None) -> np.ndarray:
+        """Decode a stream; ``backend`` overrides the codec's
+        ``decode_backend`` (all backends are byte-identical)."""
+        return stream_mod.decode_stream(
+            blob, seed=self.decode_seed,
+            backend=backend or self.decode_backend, device=self.torch_device)
+
+    @staticmethod
+    def compression_ratio(x: np.ndarray, blob: bytes) -> float:
+        return x.nbytes / len(blob)
+
+    def encode_stats(self, x: np.ndarray) -> dict:
+        blob = self.encode(x)
+        _, events = stream_mod.parse_stream(blob)
+        hits = sum(1 for e in events if e["kind"] == "hit")
+        return {
+            "ratio": self.compression_ratio(x, blob),
+            "bytes": len(blob),
+            "blocks": len(events),
+            "hits": hits,
+            "hit_rate": hits / max(len(events), 1),
+        }

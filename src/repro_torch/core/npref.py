@@ -1,0 +1,114 @@
+"""Pure-numpy reference encoder: the ``"numpy"`` backend and the decision
+oracle for the tensor and kernel paths.
+
+Mirrors the early-exit C encoder semantics exactly: for each block, walk the
+dictionary in slot order, apply the min/max gate (eq. 3) then the KS test,
+take the first passing entry; FIFO insert on miss.
+
+The dictionary carry is resumable: pass ``state=np_init_state(num_dict)``
+and thread the returned state through chunked calls to get decisions
+identical to one pass over the whole array.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+__all__ = ["ks_statistic_np", "ks_pvalue_np", "NpDictState", "np_init_state",
+           "encode_decisions_np"]
+
+
+def ks_statistic_np(x: np.ndarray, y: np.ndarray) -> float:
+    xs, ys = np.sort(x), np.sort(y)
+    n1, n2 = len(xs), len(ys)
+    both = np.concatenate([xs, ys])
+    f1 = np.searchsorted(xs, both, side="right") / n1
+    f2 = np.searchsorted(ys, both, side="right") / n2
+    return float(np.max(np.abs(f1 - f2)))
+
+
+def ks_pvalue_np(d: float, n1: int, n2: int, terms: int = 40) -> float:
+    en = n1 * n2 / (n1 + n2)
+    lam = max(np.sqrt(en) * d, 1e-12)
+    if lam < 0.1:  # keep byte-consistent with ks._SMALL_LAM
+        return 1.0
+    j = np.arange(1, terms + 1)
+    q = 2.0 * np.sum((-1.0) ** (j - 1) * np.exp(-2.0 * j * j * lam * lam))
+    return float(np.clip(q, 0.0, 1.0))
+
+
+@dataclass
+class NpDictState:
+    """Host twin of ``encoder.DictState`` (mutated in place by the scan)."""
+
+    blocks: List[Optional[np.ndarray]]
+    dmin: np.ndarray
+    dmax: np.ndarray
+    count: int = 0
+
+
+def np_init_state(num_dict: int) -> NpDictState:
+    return NpDictState(
+        blocks=[None] * num_dict,
+        dmin=np.zeros(num_dict),
+        dmax=np.zeros(num_dict),
+    )
+
+
+def encode_decisions_np(
+    blocks: np.ndarray,
+    *,
+    num_dict: int,
+    d_crit: float,
+    rel_tol: float = 0.1,
+    use_minmax: bool = True,
+    use_ks: bool = True,
+    state: Optional[NpDictState] = None,
+) -> Tuple[np.ndarray, ...]:
+    """Sequential early-exit reference; same outputs as
+    ``encoder.encode_decisions``.
+
+    With ``state``, continues from (and mutates) the given carry and returns
+    ``((is_hit, slot, overwrite), state)``; without, runs one-shot and
+    returns the plain decision triple.
+    """
+    return_state = state is not None
+    if state is None:
+        state = np_init_state(num_dict)
+    nb, _ = blocks.shape
+    dict_blocks, dmin, dmax = state.blocks, state.dmin, state.dmax
+    is_hit = np.zeros(nb, dtype=bool)
+    slot = np.zeros(nb, dtype=np.int32)
+    overwrite = np.zeros(nb, dtype=bool)
+    for i in range(nb):
+        x = blocks[i]
+        xmin, xmax = float(np.min(x)), float(np.max(x))
+        hit = -1
+        for s in range(num_dict):
+            if dict_blocks[s] is None:
+                continue
+            if use_minmax:
+                w = dmax[s] - dmin[s]
+                t = w * rel_tol
+                if not (
+                    dmin[s] - t <= xmin <= dmin[s] + t
+                    and dmax[s] - t <= xmax <= dmax[s] + t
+                ):
+                    continue
+            if use_ks and ks_statistic_np(x, dict_blocks[s]) > d_crit:
+                continue
+            hit = s
+            break
+        if hit >= 0:
+            is_hit[i], slot[i] = True, hit
+        else:
+            s = state.count % num_dict
+            overwrite[i] = state.count >= num_dict
+            slot[i] = s
+            dict_blocks[s] = x.copy()
+            dmin[s], dmax[s] = xmin, xmax
+            state.count += 1
+    out = (is_hit, slot, overwrite)
+    return (out, state) if return_state else out

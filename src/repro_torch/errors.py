@@ -1,0 +1,25 @@
+"""Typed failures of the PyTorch port.
+
+The port keeps its own copies of the reference package's typed errors so it
+imports nothing from it.  Both keep ``ValueError`` in their bases, so
+``except ValueError`` call sites work unchanged.
+"""
+from __future__ import annotations
+
+__all__ = ["StreamFormatError", "KernelShapeError"]
+
+
+class StreamFormatError(ValueError):
+    """Malformed/truncated IDEALEM stream.  ``offset`` is the byte position
+    at which parsing failed (raw ``struct.error``/``IndexError`` from the
+    walk are never surfaced to callers)."""
+
+    def __init__(self, message: str, offset: int = 0):
+        super().__init__(f"{message} (at byte {offset})")
+        self.offset = offset
+
+
+class KernelShapeError(ValueError):
+    """An operand's device, dtype, shape or layout violates a kernel's
+    contract.  Raised by the kernel wrappers before any launch, with the
+    offending dimensions in the message."""

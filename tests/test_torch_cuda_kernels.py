@@ -1,0 +1,98 @@
+"""The port's CUDA kernels on the card: each held against its plain version
+(decisions and carry equal, cumsum bitwise), plus the golden corpus through
+``backend="cuda"``.  Marked ``cuda``; without a card every test skips.
+
+Run on a machine with a card: ``PYTHONPATH=src python -m pytest -q -m cuda
+tests/test_torch_cuda_kernels.py``.
+"""
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from conftest import GOLDEN_CASES, golden_codec_kwargs, golden_signal  # noqa: E402
+from repro_torch import IdealemCodec, KernelShapeError  # noqa: E402
+from repro_torch.core.encoder import init_state  # noqa: E402
+from repro_torch.kernels import encode_step as k1  # noqa: E402
+from repro_torch.kernels import seq_cumsum as k2  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _xs(C, nb, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([rng.normal(m, s, size=(C, nb // 2, n))
+                        for m, s in [(0, 1), (5, 0.5)]], axis=1)
+    return torch.sort(torch.from_numpy(x).to(dev, torch.float32),
+                      dim=-1).values
+
+
+@pytest.mark.parametrize("D,n", [(1, 7), (9, 32), (255, 111), (255, 256)])
+def test_encode_scan_matches_plain(dev, D, n):
+    xs = _xs(3, 300, n, D + n, dev)
+    valid = torch.ones(xs.shape[:2], dtype=torch.bool, device=dev)
+    valid[1, ::3] = False
+    st = init_state(D, n, channels=3, device=dev)
+    kw = dict(d_crit=(int(0.4 * n) + 0.5) / n, rel_tol=0.5)
+    before = k1.launches
+    got, gst = k1.encode_scan(xs, valid, st, **kw)
+    assert k1.launches == before + 1
+    want, wst = k1.encode_scan_torch(xs, valid, st, **kw)
+    for a, b in zip((*got, *gst), (*want, *wst)):
+        assert torch.equal(a, b)
+
+
+def test_encode_scan_rejects_bad_operands(dev):
+    xs = _xs(1, 4, 8, 0, dev)
+    valid = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    with pytest.raises(KernelShapeError):
+        k1.encode_scan(xs.double(), valid, init_state(4, 8, channels=1,
+                                                       device=dev),
+                       d_crit=0.5, rel_tol=0.5)
+    with pytest.raises(KernelShapeError):
+        k1.encode_scan(xs, valid, init_state(300, 8, channels=1, device=dev),
+                       d_crit=0.5, rel_tol=0.5)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.float16])
+def test_seq_cumsum_bitwise(dev, dtype):
+    x = np.random.default_rng(1).normal(0, 3, (4099, 111)).astype(dtype)
+    x[:, 0] = -0.0
+    got = k2.seq_cumsum(torch.from_numpy(x).to(dev)).cpu().numpy()
+    assert got.tobytes() == np.cumsum(x, axis=1).tobytes()
+
+
+def test_empty_operands_launch_nothing(dev):
+    k1.launches = k2.launches = 0
+    for shape in [(0, 5), (4, 0)]:
+        out = k2.seq_cumsum(torch.zeros(shape, dtype=torch.float64,
+                                        device=dev))
+        assert out.shape == shape
+    xs = _xs(1, 4, 8, 0, dev)[:, :0]
+    (h, _, _), _ = k1.encode_scan(
+        xs, torch.ones((1, 0), dtype=torch.bool, device=dev),
+        init_state(4, 8, channels=1, device=dev), d_crit=0.5, rel_tol=0.5)
+    assert h.shape == (1, 0)
+    assert k1.launches == k2.launches == 0
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_CASES))
+def test_golden_on_card(dev, name):
+    kw = golden_codec_kwargs(name)
+    kw["backend"] = "cuda"
+    codec = IdealemCodec(**kw)
+    blob = codec.encode(golden_signal(name))
+    path = os.path.join(os.path.dirname(__file__), "golden", f"{name}.idlm")
+    with open(path, "rb") as f:
+        assert blob == f.read()
+    assert codec.decode(blob).tobytes() == codec.decode(
+        blob, backend="numpy").tobytes()
