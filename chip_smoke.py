@@ -13,29 +13,52 @@ Phases, each fatal on failure (no failure is caught):
 3. K1      -- the fused encode scan against its plain version on the card:
               D in {1, 9, 255}, n in {7, 32, 111}, the min/max and KS
               ablations, a ragged block mask, plus one dictionary too large
-              for shared memory.  Decisions and final carry must be equal.
+              for shared memory; and the error-bounded mode (std and
+              cumulative) at D=255, n=111 (sorted and raw dictionaries fill
+              shared memory to its edge) and at n=256 (global memory).
+              Decisions and final carry must be equal.
 4. K2      -- the sequential cumsum against its plain version and against
               ``np.cumsum`` of the host copy, bitwise, in f64/f32/f16 with a
               leading -0.0.
-5. golden  -- the 8 streams of ``tests/golden`` encode byte for byte with
+5. K3      -- the dict_match kernel against its plain version, bitwise:
+              C in {1, 64} x D in {1, 8, 9, 255} x n in {7, 32, 111, 256},
+              rows in stored (unsorted) order with one equal to the
+              candidate (distance 0), rows on the eq. 3 gate's boundary,
+              f16/bf16 operands; on sorted rows its distances also equal
+              K1's plain KS.
+6. golden  -- the 8 streams of ``tests/golden`` encode byte for byte with
               ``backend="cuda"``; their cuda decode equals the host decode.
-6. main    -- the paper's Table I configurations (MAG std B=32; ANG
-              residual and delta B=112; D=255, alpha=0.01) on 64 channels x
-              2**20 f64 samples of synthetic PMU traffic (the reference
-              package's uPMU stand-ins, event rates kept), fed to
-              ``codec.session(channels=64)`` in 16 chunks and decoded on the
-              card channel by channel.  Launch counts are zeroed just before
-              each configuration and read just after.  Checks: exact miss
+7. main    -- the paper's Table I configurations (MAG std B=32; ANG
+              residual and delta B=112; D=255, alpha=0.01) on 64 channels of
+              synthetic PMU traffic (the reference package's uPMU stand-ins,
+              event rates kept), the first 4 of 16 chunks of 65,536 f64
+              samples fed to ``codec.session(channels=64)`` and decoded on
+              the card channel by channel.  Launch counts are zeroed just before
+              each path and read just after.  Checks: exact miss
               blocks (std) or block bases (residual/delta) and tails; cuda
               decode == numpy decode; K1's decisions on 4 channels == the
               plain scan on the card; the first 2,048 blocks of one channel
               == the numpy oracle; chunked == one-shot decode.  Then the
               same encode and decode again under ``torch.profiler``: the
               card's busy share and device time by kernel name.
-7. timing  -- each kernel at a main-path shape against its plain version
+8. ops     -- MAG with ``matcher="ops"`` (K3 once per block step), all
+              16 chunks (2**20 samples a channel): the streams must equal
+              the fused streams byte for byte, with one K3 launch per block
+              stepped and no K1 launch.
+9. bound   -- the error-bounded mode on ``backend="cuda"``, all 16 chunks
+              (2**20 samples a channel): MAG with
+              ``error_bound``, ANG_delta with ``error_bound_rel``.  Every
+              channel decodes within the bound (circular for ANG) up to the
+              gate's float32 rounding; cuda decode == numpy decode; K1's
+              decisions on 4 channels == the plain scan on the card.
+10. auto   -- ``matcher="auto"`` resolved on the card at the MAG and ANG
+              shapes: the probe's times and choice; the choice decides the
+              first feed as the fused scan does.
+11. timing -- each kernel at a main-path shape against its plain version
               (equal, else fatal), its bound and (K2) ``torch.cumsum``; K1
-              also on a MAG-shaped feed that turns the dictionary over;
-              prints the ``{"kernels": [...]}`` line.
+              also on a MAG-shaped feed that turns the dictionary over and,
+              with the error bound, at the ANG_delta feed shape; K3 at the
+              MAG and ANG step shapes; prints the ``{"kernels": [...]}`` line.
 
 Prints the card line (``nvidia-smi --query-gpu=name,power.limit``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +76,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 
 CHANNELS, SAMPLES, CHUNKS = 64, 2 ** 20, 16
+# The fused main path (phase 7) runs the first quarter of the feeds, to
+# keep the run short; the paths added after it run all 16.
+MAIN_CHUNKS = 4
 # The reference package's stand-in for the paper's uPMU channels
 # (benchmarks/common.py, 262,144 samples each): channel c takes template
 # c % 4.  MAG: (level, noise, tap_step, level shifts); 6 tap changes.
@@ -81,15 +107,35 @@ CONFIGS = {  # the paper's Table I (src/repro/configs/idealem_paper.py)
 # f64 outside the tensor cores.
 HBM_BPS = 3.35e12
 PEAK_OPS = {"f32": 67e12, "f64": 34e12}
+# A compare is one instruction where the 67 TFLOP/s counts an FMA as two
+# operations: half that rate.
+PEAK_COMPARES = PEAK_OPS["f32"] / 2
 # K1 operation count per dictionary row and block: the eq. 3 gate (one
 # difference, one product, two sums, two differences, four compares) for
 # every valid row; for every gate-passing row the KS distance, about 12 f32
 # operations per sample (two ECDF products, a difference, an abs and a max
-# for each of the two gaps, and the merge compares).
-K1_GATE_OPS, K1_KS_OPS_PER_SAMPLE = 10, 12
+# for each of the two gaps, and the merge compares) and, with the error
+# bound, 3 per sample (a difference, the running sum, a compare).
+K1_GATE_OPS, K1_KS_OPS_PER_SAMPLE, K1_EB_OPS_PER_SAMPLE = 10, 12, 3
+# The error-bounded runs: MAG with an absolute bound in its own units,
+# ANG_delta with a bound relative to the [0, 360) range (0.18 degrees; at
+# 0.36 degrees this traffic's phase noise stays inside the bound and almost
+# nothing is demoted).
+BOUNDS = {"MAG": dict(error_bound=3.0),
+          "ANG_delta": dict(error_bound_rel=5e-4)}
+# tests/test_error_bounded.py's allowance for f32 rounding on top of the
+# bound, relative to the bound
+EB_SLOP = 1e-4
+
+T_START = time.perf_counter()
+
 
 def say(msg: str) -> None:
-    print(msg, flush=True)
+    """Print a line, prefixed (after its tag) with the seconds since the
+    script started."""
+    tag, _, rest = msg.partition("] ")
+    print(f"{tag}] +{time.perf_counter() - T_START:.1f}s {rest}"
+          if rest else msg, flush=True)
 
 
 def check(cond, what: str) -> None:
@@ -104,12 +150,24 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, queued: bool = False) -> float:
     """Mean milliseconds per call of ``fn`` on the card, after one warm-up,
-    from CUDA events around ``reps`` back-to-back calls."""
+    from CUDA events around ``reps`` back-to-back calls.
+
+    ``queued`` (for kernels): a spin kernel (``torch.cuda._sleep``) first
+    holds the card while the host enqueues all ``reps`` calls, so the
+    events time the kernels back to back and not the host's launch
+    overhead between them (which exceeds a short kernel's run time)."""
     import torch
     fn()
     torch.cuda.synchronize()
+    if queued:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # >= 2e9 cycles a second at any SM clock: sleeps at least as long
+        torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 1e-3)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -118,6 +176,21 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_once(fn):
+    """``(result, milliseconds)`` of one call of ``fn`` on the card, from
+    CUDA events: for plain scans, whose seconds-long runs need no warm-up
+    and are too long to repeat."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def mixture(nb, n, seed):
@@ -134,7 +207,8 @@ def phase_build():
     t0 = time.perf_counter()
     times = _build.build_all(force=True)
     wall = time.perf_counter() - t0
-    check(set(times) == {"encode_step", "seq_cumsum"}, f"built {times}")
+    check(set(times) == {"encode_step", "seq_cumsum", "dict_match"},
+          f"built {times}")
     for name in sorted(times):
         say(f"[build] {name}.cu: {times[name]:.2f} s")
         for line in _build.build_log(name).splitlines():
@@ -174,6 +248,110 @@ def phase_k1(torch, dev):
     check(np.all(seen > 0), f"K1 ring saw hits/misses/overwrites {seen}")
     say(f"[K1] {len(cases)} cases equal to the plain version on the card "
         f"(hits {seen[0]}, misses {seen[1]}, overwrites {seen[2]})")
+    phase_k1_bound(torch, dev)
+
+
+def templated(C, nb, n, seed):
+    """Blocks near one of 24 template blocks, half with noise 0.05 and half
+    with noise 0.6: the KS test passes on most repeats, and an error bound
+    between the two noise levels demotes the noisy half."""
+    rng = np.random.default_rng(seed)
+    tmpl = rng.normal(0, 1, (24, n))
+    idx = rng.integers(0, 24, (C, nb))
+    noise = np.where(rng.random((C, nb, 1)) < 0.5, 0.05, 0.6)
+    return tmpl[idx] + noise * rng.normal(0, 1, (C, nb, n))
+
+
+def phase_k1_bound(torch, dev):
+    """K1's error-bound operands against the plain version: std and
+    cumulative gates; the shared-memory edge and the global layout."""
+    from repro_torch.core.encoder import init_state
+    from repro_torch.kernels import encode_step as k1
+    C, nb = 3, 320
+    seen = np.zeros(2, dtype=np.int64)  # hits, demoted would-be hits
+    for D, n, smem in ((9, 32, True), (255, 111, True), (255, 256, False)):
+        check(k1.dict_in_smem(n, D, True) == smem,
+              f"K1 error-bound layout D={D} n={n}: shared memory {smem}")
+        for cum in (False, True):
+            raw = torch.from_numpy(templated(C, nb, n, seed=D + n)).to(
+                dev, torch.float32)
+            xs = torch.sort(raw, dim=-1).values
+            valid = torch.ones((C, nb), dtype=torch.bool, device=dev)
+            valid[2, ::5] = False
+            kw = dict(d_crit=(int(0.4 * n) + 0.5) / n, rel_tol=0.5)
+            eb = dict(raw=raw, error_bound=3.0 if cum else 0.5,
+                      error_cumulative=cum)
+            st = init_state(D, n, channels=C, device=dev, raw=True)
+            got, gst = k1.encode_scan(xs, valid, st, **kw, **eb)
+            torch.cuda.synchronize()
+            want, wst = k1.encode_scan_torch(xs, valid, st, **kw, **eb)
+            what = f"K1 error bound D={D} n={n} cumulative={cum}"
+            for a, b, name in zip((*got, *gst), (*want, *wst),
+                                  ("is_hit", "slot", "overwrite",
+                                   *gst._fields)):
+                check(torch.equal(a, b), f"{what}: {name}")
+            free, _ = k1.encode_scan(xs, valid, init_state(
+                D, n, channels=C, device=dev), **kw)
+            seen += [int(got[0].sum()), int(free[0].sum() - got[0].sum())]
+    check(np.all(seen > 0), f"K1 error-bound ring saw hits/demotions {seen}")
+    say(f"[K1] error bound: 6 cases equal to the plain version, raw rows "
+        f"included (hits {seen[0]}, fewer than without the bound by "
+        f"{seen[1]}); D=255 n=111 in shared memory, n=256 in global memory")
+
+
+def phase_k3(torch, dev):
+    from repro_torch.kernels import dict_match as k3
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(12)
+    cases = [(C, D, n) for C in (1, 64) for D in (1, 8, 9, 255)
+             for n in (7, 32, 111, 256)]
+    for C, D, n in cases:
+        xs = torch.sort(torch.from_numpy(rng.normal(size=(C, n))).to(
+            dev, torch.float32), dim=-1).values
+        rows = torch.from_numpy(rng.normal(size=(C, D, n))).to(
+            dev, torch.float32)
+        rows[:, 0] = xs[:, torch.randperm(n, device=dev)]  # distance 0
+        lo, hi = rows.amin(-1), rows.amax(-1)
+        ks, mm = k3.dict_match_cuda(xs, rows, lo, hi, 0.3)
+        torch.cuda.synchronize()
+        ks_p, mm_p = ref.dict_match_ref(xs, rows, lo, hi, 0.3)
+        what = f"K3 C={C} D={D} n={n}"
+        check(torch.equal(ks, ks_p) and torch.equal(mm, mm_p),
+              f"{what}: kernel == plain version (stored order)")
+        check(not ks[:, 0].any(), f"{what}: identical block at distance 0")
+        srt = torch.sort(rows, dim=-1).values
+        ks_s, _ = k3.dict_match_cuda(xs, srt, lo, hi, 0.3)
+        check(torch.equal(ks_s, ks), f"{what}: order-free")
+        check(torch.equal(ks_s, ref.ks_counts(xs, srt, float(
+            np.float32(1.0 / n)))), f"{what}: sorted rows == K1's plain KS")
+    # eq. 3 boundary: candidate extremes exactly on dmin/dmax -+ t pass,
+    # beyond them fail (tests/test_kernels.py:86)
+    n = 32
+    xs = torch.linspace(0.0, 1.0, n, dtype=torch.float32, device=dev)
+    base = xs.repeat(6, 1)
+    r = 0.25
+    t = (base[:, -1] - base[:, 0]) * torch.tensor(r, device=dev)
+    shift = torch.tensor([0.0, 1.0, -1.0, 1.0001, 0.5, 2.0], device=dev)
+    ds = base + (shift * t)[:, None]
+    lo, hi = ds.amin(-1), ds.amax(-1)
+    ks, mm = k3.dict_match_cuda(xs[None], ds[None], lo[None], hi[None], r)
+    torch.cuda.synchronize()
+    ks_p, mm_p = ref.dict_match_ref(xs[None], ds[None], lo[None], hi[None], r)
+    check(torch.equal(ks, ks_p) and torch.equal(mm, mm_p),
+          "K3 gate boundary: kernel == plain version")
+    check(mm[0, :3].all() and not mm[0, 3] and not mm[0, 5],
+          f"K3 gate boundary: on-edge pass, outside fail ({mm.tolist()})")
+    for dt in (torch.float16, torch.bfloat16):
+        x = torch.sort(torch.randn(64, 111, device=dev), -1).values.to(dt)
+        rows = torch.randn(64, 255, 111, device=dev).to(dt)
+        args = (x, rows, rows.amin(-1), rows.amax(-1), 0.5)
+        got, want = ops.dict_match(*args), ops.dict_match_reference(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"K3 {dt} operands == plain version")
+    say(f"[K3] {len(cases)} shapes bitwise equal to the plain version on the "
+        "card (stored order, distance-0 rows, sorted rows == K1's plain "
+        "KS); gate boundary; f16/bf16 operands")
 
 
 def phase_k2(torch, dev):
@@ -275,6 +453,28 @@ def device_profile(torch, fn):
             "device_ms_by_name": {k[:80]: v for k, v in top}}
 
 
+def encode_session(torch, codec, x, chunks=CHUNKS):
+    """The first ``chunks`` of CHUNKS feeds of ``x`` (C, SAMPLES) through
+    one ``codec.session(channels=C)``; one stream per channel, ending in a
+    device sync."""
+    step = SAMPLES // CHUNKS
+    sess = codec.session(channels=len(x))
+    parts = [[] for _ in range(len(x))]
+    for lo in range(0, chunks * step, step):
+        for c, seg in enumerate(sess.feed(x[:, lo:lo + step])):
+            parts[c].append(seg)
+    for c, seg in enumerate(sess.finish()):
+        parts[c].append(seg)
+    torch.cuda.synchronize()
+    return [b"".join(p) for p in parts]
+
+
+def decode_all(torch, codec, blobs):
+    ys = [codec.decode(b) for b in blobs]
+    torch.cuda.synchronize()
+    return ys
+
+
 def phase_main(torch, dev, card):
     from repro_torch import IdealemCodec
     from repro_torch.core.encoder import init_state
@@ -284,27 +484,18 @@ def phase_main(torch, dev, card):
     from repro_torch.kernels import seq_cumsum as k2
     launches = {"encode_step": 0, "seq_cumsum": 0}
     first_chunks = {}
+    step = SAMPLES // CHUNKS
+    samples = MAIN_CHUNKS * step
     for cfg_name, cfg in CONFIGS.items():
         codec = IdealemCodec(device=dev, **cfg)  # backend/decode: cuda
         B = codec.block_size
-        x = make_traffic(cfg_name)
-        step = SAMPLES // CHUNKS
+        x = make_traffic(cfg_name)[:, :samples]
 
         def encode():
-            sess = codec.session(channels=CHANNELS)
-            parts = [[] for _ in range(CHANNELS)]
-            for lo in range(0, SAMPLES, step):
-                for c, seg in enumerate(sess.feed(x[:, lo:lo + step])):
-                    parts[c].append(seg)
-            for c, seg in enumerate(sess.finish()):
-                parts[c].append(seg)
-            torch.cuda.synchronize()
-            return [b"".join(p) for p in parts]
+            return encode_session(torch, codec, x, chunks=MAIN_CHUNKS)
 
         def decode():
-            ys = [codec.decode(b) for b in blobs]
-            torch.cuda.synchronize()
-            return ys
+            return decode_all(torch, codec, blobs)
 
         k1.launches = k2.launches = 0
         t0 = time.perf_counter()
@@ -320,11 +511,11 @@ def phase_main(torch, dev, card):
         check(n1 > 0, f"{cfg_name}: K1 launched on the main path ({n1})")
         if cfg["mode"] == "delta":
             check(n2 > 0, f"{cfg_name}: K2 launched on the main path ({n2})")
-        nb = SAMPLES // B
-        tail = SAMPLES - nb * B
+        nb = samples // B
+        tail = samples - nb * B
         hits = 0
         for c, (blob, y) in enumerate(zip(blobs, ys)):
-            check(y.shape == (SAMPLES,) and y.dtype == np.float64 and
+            check(y.shape == (samples,) and y.dtype == np.float64 and
                   bool(np.all(np.isfinite(y))), f"{cfg_name} ch{c} shape")
             want = decode_stream(blob, backend="numpy")
             check(y.tobytes() == want.tobytes(),
@@ -388,7 +579,7 @@ def phase_main(torch, dev, card):
             "blocks_per_channel": nb,
             "numpy_f64_payload_hit_diffs": f64_diff,
         }
-        say(f"[main] {cfg_name} {CHANNELS} ch x {SAMPLES} f64 "
+        say(f"[main] {cfg_name} {CHANNELS} ch x {samples} f64 "
             f"({bytes_in / 2**20:.0f} MiB): {json.dumps(res)} [{card}]")
         say(f"[main] {cfg_name}: checks passed (f64-payload numpy backend "
             f"differs on {f64_diff} of the first {ORACLE_BLOCKS} hits)")
@@ -400,13 +591,209 @@ def phase_main(torch, dev, card):
         p0 = codec._transform(x[:, :step - step % B].reshape(
             CHANNELS, -1, B).reshape(-1, B))[0]
         first_chunks[cfg_name] = (codec, p0.reshape(CHANNELS, -1, p0.shape[-1]))
-        del x, ys, blobs
+        del x, ys
     return launches, first_chunks
 
 
-def k1_work(torch, xs, is_hit, D, rel_tol):
-    """(valid rows, gate-passing rows) summed over a scan from an empty
-    dictionary: each step's dictionary is replayed from the decisions."""
+def stream_hits(blobs):
+    from repro_torch.core.stream import _parse_arrays
+    return sum(int(_parse_arrays(b)[1].is_hit.sum()) for b in blobs)
+
+
+def unbounded(torch, dev, cfg_name):
+    """``(traffic, streams)`` of one configuration at 2**20 samples a
+    channel, encoded by the fused scan with no error bound."""
+    from repro_torch import IdealemCodec
+    x = make_traffic(cfg_name)
+    codec = IdealemCodec(device=dev, **CONFIGS[cfg_name])
+    return x, encode_session(torch, codec, x)
+
+
+def phase_ops(torch, dev, card, x, fused):
+    """MAG with ``matcher="ops"`` on traffic ``x``: K3 once per block step,
+    then the plain tensor step; the streams must equal ``fused``.  Returns
+    K3's launch count on this path."""
+    from repro_torch import IdealemCodec
+    from repro_torch.kernels import dict_match as k3
+    from repro_torch.kernels import encode_step as k1
+    codec = IdealemCodec(device=dev, matcher="ops", **CONFIGS["MAG"])
+    k1.launches = k3.launches = 0
+    t0 = time.perf_counter()
+    blobs = encode_session(torch, codec, x)
+    t_enc = time.perf_counter() - t0
+    n3, n1 = k3.launches, k1.launches
+    steps = SAMPLES // codec.block_size
+    check(n3 == steps and n1 == 0,
+          f"MAG ops: one K3 launch per block step ({n3} of {steps}), no K1 "
+          f"launch ({n1})")
+    check(blobs == fused,
+          "MAG ops: streams == the fused (backend=cuda) streams, byte for "
+          "byte")
+    res = {"encode_MBps": x.nbytes / t_enc / 1e6, "encode_s": t_enc,
+           "launches": {"dict_match": n3, "encode_step": n1},
+           "us_per_block_step": t_enc / steps * 1e6}
+    say(f"[ops] MAG matcher=ops {CHANNELS} ch x {SAMPLES} f64: "
+        f"{json.dumps(res)} [{card}]")
+    say("[ops] MAG: streams equal the fused streams byte for byte")
+    # a shorter window under the profiler: the first 256 block steps
+    window = x[:, :256 * codec.block_size]
+    say(f"[profile] MAG ops encode, first 256 block steps: "
+        f"{json.dumps(device_profile(torch, lambda: encode_session(torch, codec, window, chunks=1)))}"
+        f" [{card}]")
+    return n3
+
+
+def phase_bound(torch, dev, card, known):
+    """The error-bounded mode end to end on ``backend="cuda"``, against the
+    unbounded encodes (``known`` maps a configuration to its
+    :func:`unbounded` result where one was made already).  Returns (K1,
+    K2) launch counts on these paths."""
+    from repro_torch import IdealemCodec
+    from repro_torch.core.encoder import init_state
+    from repro_torch.core.stream import _parse_arrays, decode_stream
+    from repro_torch.kernels import encode_step as k1
+    from repro_torch.kernels import seq_cumsum as k2
+    launches = np.zeros(2, dtype=np.int64)
+    for cfg_name, extra in BOUNDS.items():
+        cfg = CONFIGS[cfg_name]
+        codec = IdealemCodec(device=dev, **cfg, **extra)
+        bound, vr, B = codec.error_bound, codec.value_range, codec.block_size
+        x, fused = known.get(cfg_name) or unbounded(torch, dev, cfg_name)
+        free = stream_hits(fused)
+        k1.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        blobs = encode_session(torch, codec, x)
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ys = decode_all(torch, codec, blobs)
+        t_dec = time.perf_counter() - t0
+        n1, n2 = k1.launches, k2.launches
+        launches += [n1, n2]
+        check(n1 == CHUNKS, f"{cfg_name} bound: K1 launched once per feed "
+              f"({n1})")
+        if cfg["mode"] == "delta":
+            check(n2 > 0, f"{cfg_name} bound: K2 launched ({n2})")
+        nb = SAMPLES // B
+        worst, worst_excess = 0.0, -np.inf
+        for c, (blob, y) in enumerate(zip(blobs, ys)):
+            check(y.shape == (SAMPLES,) and bool(np.all(np.isfinite(y))),
+                  f"{cfg_name} bound ch{c}: shape/finite")
+            check(y.tobytes() == decode_stream(blob, backend="numpy")
+                  .tobytes(), f"{cfg_name} bound ch{c}: cuda decode == "
+                  "numpy decode")
+            err = np.abs(y - x[c])
+            if vr is not None:
+                err = np.minimum(err, (vr[1] - vr[0]) - err)
+            # the gate compares float32 casts of the f64 payloads: each cast
+            # may move a sample by half a float32 spacing at its magnitude
+            slop = EB_SLOP * max(bound, 1.0) + float(
+                np.spacing(np.float32(np.abs(x[c]).max())))
+            check(float(err.max()) <= bound + slop,
+                  f"{cfg_name} bound ch{c}: max error {float(err.max())} "
+                  f"within {bound} + {slop}")
+            worst = max(worst, float(err.max()))
+            worst_excess = max(worst_excess, float(err.max()) - bound)
+        hits = stream_hits(blobs)
+        demoted = 1.0 - hits / free
+        check(0.05 <= demoted <= 0.95,
+              f"{cfg_name} bound: demotes {demoted:.4f} of the unbounded "
+              "hits (want 5-95 %)")
+        # K1's decisions as written to the stream vs the plain scan
+        pay = torch.as_tensor(np.stack([codec._transform(
+            x[c, :nb * B].reshape(nb, B))[0] for c in PLAIN_CHANNELS]),
+            dtype=torch.float32, device=dev)
+        (h, s, o), _ = k1.encode_scan_torch(
+            torch.sort(pay, dim=-1).values,
+            torch.ones(pay.shape[:2], dtype=torch.bool, device=dev),
+            init_state(codec.num_dict, pay.shape[-1], channels=len(pay),
+                       device=dev, raw=True),
+            d_crit=codec.d_crit, rel_tol=codec.rel_tol, raw=pay,
+            error_bound=bound, error_cumulative=cfg["mode"] == "delta")
+        for i, c in enumerate(PLAIN_CHANNELS):
+            pr = _parse_arrays(blobs[c])[1]
+            check(np.array_equal(h[i].cpu().numpy(), pr.is_hit) and
+                  np.array_equal(s[i].cpu().numpy(), pr.slot) and
+                  np.array_equal(o[i].cpu().numpy(), pr.overwrite),
+                  f"{cfg_name} bound ch{c}: K1 decisions == plain scan")
+        res = {"error_bound": bound, "max_abs_err": worst,
+               "max_excess_over_bound": worst_excess,
+               "ratio": x.nbytes / sum(len(b) for b in blobs),
+               "hit_rate": hits / (nb * CHANNELS),
+               "hit_rate_unbounded": free / (nb * CHANNELS),
+               "demoted_share": demoted,
+               "encode_MBps": x.nbytes / t_enc / 1e6,
+               "decode_MBps": x.nbytes / t_dec / 1e6,
+               "launches": {"encode_step": n1, "seq_cumsum": n2}}
+        say(f"[bound] {cfg_name} {CHANNELS} ch x {SAMPLES} f64: "
+            f"{json.dumps(res)} [{card}]")
+        say(f"[bound] {cfg_name}: every channel within the bound; checks "
+            "passed")
+        say(f"[profile] {cfg_name} bounded encode: "
+            f"{json.dumps(device_profile(torch, lambda: encode_session(torch, codec, x)))}"
+            f" [{card}]")
+        del x, fused, ys, blobs
+    return launches
+
+
+def phase_auto(torch, dev, card, first_chunks):
+    """``matcher="auto"`` on the card: the probe's times and choice at the
+    MAG and ANG shapes; the choice decides the first feed as K1 does."""
+    from repro_torch.core import encoder as enc
+    enc.reset_encode_autotune()
+    for cfg_name in ("MAG", "ANG_delta"):
+        codec, pay = first_chunks[cfg_name]
+        pt = torch.as_tensor(pay, dtype=torch.float32, device=dev)
+        kw = dict(num_dict=codec.num_dict, d_crit=codec.d_crit,
+                  rel_tol=codec.rel_tol)
+        got = enc.encode_decisions_batched(pt, matcher="auto", **kw)
+        want = enc.encode_decisions_batched(pt, matcher="fused", **kw)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"auto {cfg_name}: decisions == fused")
+        key = enc._matcher_key(codec.num_dict, pt.shape[-1], pt.dtype, dev)
+        ent = {"matcher": enc.encode_autotune_choices()[key],
+               "times_us": enc._TUNER.choices("times_us")[key]}
+        say(f"[auto] {cfg_name} {key}: {json.dumps(ent)} [{card}]")
+    say(f"[auto] choices {json.dumps(enc.encode_autotune_choices())}; the "
+        "chosen matcher decides the first feed as the fused scan does")
+
+
+def time_k3(torch, dev, C, D, n):
+    """K3 at an encoder step shape: C candidates against D full rows."""
+    from repro_torch.kernels import dict_match as k3
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(n)
+    xs = torch.sort(torch.from_numpy(rng.normal(size=(C, n))).to(
+        dev, torch.float32), dim=-1).values
+    rows = torch.from_numpy(rng.normal(size=(C, D, n))).to(dev, torch.float32)
+    lo, hi = rows.amin(-1), rows.amax(-1)
+    args = (xs, rows, lo, hi, 0.5)
+    ms = cuda_ms(lambda: k3.dict_match_cuda(*args), reps=50, queued=True)
+    ks, mm = k3.dict_match_cuda(*args)
+    plain_ms = cuda_ms(lambda: ref.dict_match_ref(*args), reps=3)
+    ks_p, mm_p = ref.dict_match_ref(*args)
+    err = max(float((ks - ks_p).abs().max()),
+              float((mm != mm_p).sum()))
+    nbytes = 4 * (C * n + C * D * n + 2 * C * D + C * D) + C * D
+    # the least work per row is not the kernel's broadcast counts (3 n**2
+    # compares) but sorting the row (n log2 n compares) and merging it with
+    # the sorted candidate (2 n)
+    ops = int(round(C * D * (n * np.log2(n) + 2 * n)))
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_COMPARES * 1e3
+    return {
+        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "shape": {"C": C, "D": D, "n": n},
+        "bytes": nbytes, "ops": ops,
+    }
+
+
+def k1_work(torch, xs, is_hit, D, rel_tol, raw=None, bound=None,
+            cumulative=False):
+    """(valid rows, gate-passing rows, rows that reach the KS) summed over
+    a scan from an empty dictionary: each step's dictionary is replayed
+    from the decisions.  With ``bound``, a gate-passing row reaches the KS
+    only if its raw row is within the bound (replayed from ``raw``)."""
     C, nb, n = xs.shape
     dev = xs.device
     miss = (~is_hit).to(torch.int64)
@@ -428,32 +815,54 @@ def k1_work(torch, xs, is_hit, D, rel_tol):
     xmin, xmax = xs[..., :1], xs[..., -1:]
     gate = valid & (xmin >= dmin - t) & (xmin <= dmin + t) \
         & (xmax >= dmax - t) & (xmax <= dmax + t)
-    return int(valid.sum()), int(gate.sum())
+    ks_rows = int(gate.sum())
+    if bound is not None:
+        ks_rows = 0
+        for lo in range(0, nb, 64):  # (C, 64, D, n) at a time
+            hi = min(nb, lo + 64)
+            rows = torch.gather(raw, 1, idx.reshape(C, nb, D)[:, lo:hi]
+                                .reshape(C, -1, 1).expand(-1, -1, n))
+            diff = raw[:, lo:hi, None, :] - rows.reshape(C, hi - lo, D, n)
+            if cumulative:
+                diff = torch.cumsum(diff, dim=-1)
+            ok = (diff.abs() <= bound).all(-1)
+            ks_rows += int((gate[:, lo:hi] & ok).sum())
+    return int(valid.sum()), int(gate.sum()), ks_rows
 
 
-def time_k1(torch, dev, codec, pay):
+def time_k1(torch, dev, codec, pay, error_bound=None):
     """K1 on one feed ``pay`` (C, nb, n) from an empty dictionary, with
-    ``codec``'s D, d_crit and rel_tol."""
+    ``codec``'s D, d_crit, rel_tol and mode (the error gate is cumulative
+    in delta mode) and, if given, ``error_bound``."""
     from repro_torch.core.encoder import init_state
     from repro_torch.kernels import encode_step as k1
     C, nb, n = pay.shape
     D = codec.num_dict
-    xs = torch.sort(torch.as_tensor(pay, dtype=torch.float32, device=dev),
-                    dim=-1).values
+    eb = error_bound is not None
+    raw = torch.as_tensor(pay, dtype=torch.float32, device=dev)
+    xs = torch.sort(raw, dim=-1).values
     valid = torch.ones((C, nb), dtype=torch.bool, device=dev)
-    st = init_state(D, n, channels=C, device=dev)
+    st = init_state(D, n, channels=C, device=dev, raw=eb)
     kw = dict(d_crit=codec.d_crit, rel_tol=codec.rel_tol)
-    ms = cuda_ms(lambda: k1.encode_scan(xs, valid, st, **kw), reps=5)
+    if eb:
+        kw.update(raw=raw, error_bound=error_bound,
+                  error_cumulative=codec.mode == "delta")
+    ms = cuda_ms(lambda: k1.encode_scan(xs, valid, st, **kw), reps=5,
+                 queued=True)
     got, gst = k1.encode_scan(xs, valid, st, **kw)
-    plain_ms = cuda_ms(lambda: k1.encode_scan_torch(xs, valid, st, **kw),
-                       reps=1)
-    want, wst = k1.encode_scan_torch(xs, valid, st, **kw)
+    (want, wst), plain_ms = cuda_ms_once(
+        lambda: k1.encode_scan_torch(xs, valid, st, **kw))
     err = max(float((a.double() - b.double()).abs().max())
-              for a, b in zip((*got, *gst), (*want, *wst)))
-    rows, gated = k1_work(torch, xs, got[0], D, codec.rel_tol)
+              for a, b in zip((*got, *gst), (*want, *wst)) if a.numel())
+    rows, gated, ks_rows = k1_work(
+        torch, xs, got[0], D, codec.rel_tol, raw, error_bound,
+        eb and kw["error_cumulative"])
     nbytes = (xs.numel() * 4 + valid.numel()
               + 2 * C * (D * n * 4 + D * 9 + 4) + C * nb * 6)
-    ops = rows * K1_GATE_OPS + gated * K1_KS_OPS_PER_SAMPLE * n
+    ops = rows * K1_GATE_OPS + ks_rows * K1_KS_OPS_PER_SAMPLE * n
+    if eb:  # the raw candidates in, the raw rows in and out; the error gate
+        nbytes += raw.numel() * 4 + 2 * C * D * n * 4
+        ops += gated * K1_EB_OPS_PER_SAMPLE * n
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS["f32"] * 1e3
     return {
         "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
@@ -461,7 +870,8 @@ def time_k1(torch, dev, codec, pay):
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
         "shape": {"C": C, "nb": nb, "n": n, "D": D},
-        "valid_rows": rows, "gated_rows": gated, "bytes": nbytes, "ops": ops,
+        "valid_rows": rows, "gated_rows": gated, "ks_rows": ks_rows,
+        "bytes": nbytes, "ops": ops,
         "misses": int((~got[0]).sum()), "overwrites": int(got[2].sum()),
     }
 
@@ -472,11 +882,12 @@ def time_k2(torch, dev, rows, width):
     x = rng.normal(0, 0.05, (rows, width))
     x[:, 0] = -0.0
     xt = torch.from_numpy(x).to(dev)
-    ms = cuda_ms(lambda: k2.seq_cumsum(xt), reps=20)
+    ms = cuda_ms(lambda: k2.seq_cumsum(xt), reps=20, queued=True)
     got = k2.seq_cumsum(xt)
     plain_ms = cuda_ms(lambda: k2.seq_cumsum_torch(xt), reps=3)
     want = k2.seq_cumsum_torch(xt)
-    library_ms = cuda_ms(lambda: torch.cumsum(xt, dim=1), reps=20)
+    library_ms = cuda_ms(lambda: torch.cumsum(xt, dim=1), reps=20,
+                         queued=True)
     nbytes = 2 * xt.numel() * 8
     ops = rows * (width - 1)
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS["f64"] * 1e3
@@ -499,7 +910,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "tests"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
-    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -509,20 +919,38 @@ def main() -> int:
     phase_build()
     phase_k1(torch, dev)
     phase_k2(torch, dev)
+    phase_k3(torch, dev)
     phase_golden(dev)
     launches, first_chunks = phase_main(torch, dev, card)
+    mag = unbounded(torch, dev, "MAG")
+    launches["dict_match"] = phase_ops(torch, dev, card, *mag)
+    n1, n2 = phase_bound(torch, dev, card, {"MAG": mag})
+    del mag
+    launches["encode_step"] += int(n1)
+    launches["seq_cumsum"] += int(n2)
+    phase_auto(torch, dev, card, first_chunks)
 
     from repro_torch.core.decode import _pow2
     k1_main = time_k1(torch, dev, *first_chunks["MAG"])
     k1_ang = time_k1(torch, dev, *first_chunks["ANG_delta"])
+    ang_codec = first_chunks["ANG_delta"][0]
+    k1_ang_eb = time_k1(torch, dev, *first_chunks["ANG_delta"],
+                        error_bound=BOUNDS["ANG_delta"]["error_bound_rel"]
+                        * (ang_codec.value_range[1]
+                           - ang_codec.value_range[0]))
     mag_codec, mag_pay = first_chunks["MAG"]
     k1_turn = time_k1(torch, dev, mag_codec,
                       turnover(*mag_pay.shape, seed=5))
     nb_ang = SAMPLES // CONFIGS["ANG_delta"]["block_size"]
     k2_main = time_k2(torch, dev, _pow2(nb_ang),
                       CONFIGS["ANG_delta"]["block_size"] - 1)
+    D = mag_codec.num_dict
+    k3_mag = time_k3(torch, dev, CHANNELS, D, mag_pay.shape[-1])
+    k3_ang = time_k3(torch, dev, CHANNELS, D, ang_codec.block_size - 1)
     for name, t in (("K1 MAG", k1_main), ("K1 ANG", k1_ang),
-                    ("K1 turnover", k1_turn), ("K2 ANG_delta", k2_main)):
+                    ("K1 ANG_delta error bound", k1_ang_eb),
+                    ("K1 turnover", k1_turn), ("K2 ANG_delta", k2_main),
+                    ("K3 MAG step", k3_mag), ("K3 ANG step", k3_ang)):
         say(f"[timing] {name} {json.dumps(t)} [{card}]")
         check(t["max_abs_err"] == 0.0,
               f"{name}: kernel == plain version at the timed shape "
@@ -545,8 +973,11 @@ def main() -> int:
         entry("seq_cumsum", "src/repro_torch/csrc/seq_cumsum.cu",
               "src/repro/kernels/seq_cumsum.py:58", k2_main,
               launches["seq_cumsum"]),
+        entry("dict_match", "src/repro_torch/csrc/dict_match.cu",
+              "src/repro/kernels/dict_match.py:100", k3_mag,
+              launches["dict_match"]),
     ]}
-    say(f"[done] {time.perf_counter() - t_start:.1f} s")
+    say(f"[done] {time.perf_counter() - T_START:.1f} s")
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

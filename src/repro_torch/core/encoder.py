@@ -14,26 +14,45 @@ one scan over all of it.  :func:`state_from_numpy` / :func:`state_to_numpy`
 carry a state across to and from the reference package's ``DictState``.
 
 Matchers: ``None``/``"reference"`` is the plain tensor step below (a Python
-loop over blocks); ``"fused"`` is the hand-written CUDA scan
-(``repro_torch.kernels.encode_step``), which runs the whole feed in one
-launch.  Both sort every block once before the scan (the sort is hoisted
-out of the step) and honour the ``valid`` ragged-padding mask.
+loop over blocks); ``"ops"`` is the same loop with the matching done by the
+hand-written CUDA kernel K3 (``repro_torch.kernels.ops.dict_match``, one
+launch per block step for all channels); ``"fused"`` is the hand-written
+CUDA scan K1 (``repro_torch.kernels.encode_step``), which runs the whole
+feed in one launch; ``"auto"`` is the measured pick per (D, n, dtype,
+device), persisted under ``REPRO_TORCH_ENCODE_AUTOTUNE``
+(:func:`resolve_matcher`).  All sort every block once before the scan (the
+sort is hoisted out of the step) and honour the ``valid`` ragged-padding
+mask.
+
+Error-bounded mode: with ``error_bound`` set, a would-be hit whose stored
+raw (stream-order) row differs from the block by more than the bound at
+some sample -- or, with ``error_cumulative`` (delta mode), whose running
+sum of differences does -- is demoted to a miss.  The carry then holds the
+raw rows too (``init_state(raw=True)``).
 """
 from __future__ import annotations
 
+import logging
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.ref import error_gate, minmax_gate
 from .ks import ks_statistic_many
+from .tuning import MeasuredTuner, best_of
 
 __all__ = ["DictState", "EncoderParams", "init_state", "state_from_numpy",
-           "state_to_numpy", "matcher_reference", "encode_decisions",
-           "encode_decisions_batched", "MATCHERS"]
+           "state_to_numpy", "matcher_reference", "resolve_matcher",
+           "encode_decisions", "encode_decisions_batched", "MATCHERS",
+           "load_encode_autotune", "save_encode_autotune",
+           "reset_encode_autotune", "encode_autotune_choices",
+           "encode_autotune_cached"]
 
-MATCHERS = ("reference", "fused")
+logger = logging.getLogger("repro_torch.core.encoder")
+
+MATCHERS = ("reference", "ops", "fused")
 
 # "no entry passed" marker for the arg-min over dictionary rows; any real
 # row index (< 256) is far below it.
@@ -52,6 +71,9 @@ class DictState(NamedTuple):
     dmax: torch.Tensor           # (..., D)
     valid: torch.Tensor          # (..., D) bool
     count: torch.Tensor          # (...) int32, inserts so far (FIFO position)
+    # (..., D, n) raw (stream-order) rows for the error-bounded mode's
+    # pointwise check; (..., 0, n) when the mode is off
+    raw_blocks: torch.Tensor
 
 
 class EncoderParams(NamedTuple):
@@ -59,14 +81,19 @@ class EncoderParams(NamedTuple):
     rel_tol: float      # relative tolerance r of the min/max gate (eq. 3)
     use_minmax: bool    # paper's gate; False = "KS test only" ablation
     use_ks: bool = True  # False = min/max gate alone (ablation)
+    # error-bounded mode: None disables it; error_cumulative bounds the
+    # running sum of the payload difference (delta mode)
+    error_bound: Optional[float] = None
+    error_cumulative: bool = False
 
 
 def init_state(num_dict: int, n: int, dtype=torch.float32,
-               channels: Optional[int] = None,
-               device=None) -> DictState:
+               channels: Optional[int] = None, device=None,
+               raw: bool = False) -> DictState:
     """Fresh (empty-dictionary) carry on ``device`` (default ``"cuda"``,
     which raises without a GPU); ``channels=C`` stacks C per-channel
-    states."""
+    states.  ``raw`` allocates the raw rows the error-bounded mode matches
+    against (required whenever ``error_bound`` is set)."""
     lead = () if channels is None else (channels,)
     kw = dict(device=resolve_device(device))
     return DictState(
@@ -75,65 +102,59 @@ def init_state(num_dict: int, n: int, dtype=torch.float32,
         dmax=torch.zeros(lead + (num_dict,), dtype=dtype, **kw),
         valid=torch.zeros(lead + (num_dict,), dtype=torch.bool, **kw),
         count=torch.zeros(lead, dtype=torch.int32, **kw),
+        raw_blocks=torch.zeros(lead + (num_dict if raw else 0, n),
+                               dtype=dtype, **kw),
     )
 
 
 def state_from_numpy(state, device=None) -> DictState:
     """The port's carry from a reference-package ``DictState`` whose fields
-    were converted with ``np.asarray`` (any object with the five carry
-    attributes works), so a stream started there resumes here.  Raises for
-    an error-bounded carry (non-empty ``raw_blocks``), a mode this port
-    does not have yet (ROADMAP Queue 1 item 5).  ``device`` defaults to
-    ``"cuda"``, as :func:`init_state`'s does."""
-    raw = getattr(state, "raw_blocks", None)
-    if raw is not None and np.asarray(raw).shape[-2] != 0:
-        raise ValueError("error-bounded carries (non-empty raw_blocks) are "
-                         "not ported yet (ROADMAP Queue 1 item 5)")
+    were converted with ``np.asarray`` (any object with the carry's
+    attributes works; a missing ``raw_blocks`` means the mode is off), so a
+    stream started there resumes here.  Raises ``ValueError`` for raw rows
+    that match neither the empty ``(..., 0, n)`` form nor the dictionary's
+    shape.  ``device`` defaults to ``"cuda"``, as :func:`init_state`'s
+    does."""
     device = resolve_device(device)
 
     def t(a, dtype=None):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
+    sb = t(state.sorted_blocks)
+    raw = getattr(state, "raw_blocks", None)
+    raw = (torch.zeros(sb.shape[:-2] + (0, sb.shape[-1]), dtype=sb.dtype,
+                       device=device) if raw is None else t(raw))
+    if raw.shape[-2] != 0 and raw.shape != sb.shape:
+        raise ValueError(f"raw_blocks {tuple(raw.shape)} must be empty or "
+                         f"match sorted_blocks {tuple(sb.shape)}")
     return DictState(
-        sorted_blocks=t(state.sorted_blocks), dmin=t(state.dmin),
-        dmax=t(state.dmax), valid=t(state.valid, torch.bool),
-        count=t(state.count, torch.int32))
+        sorted_blocks=sb, dmin=t(state.dmin), dmax=t(state.dmax),
+        valid=t(state.valid, torch.bool), count=t(state.count, torch.int32),
+        raw_blocks=raw)
 
 
 def state_to_numpy(state: DictState) -> dict:
     """The carry as numpy arrays keyed by the reference ``DictState``
-    fields, ``raw_blocks`` included as its empty ``(..., 0, n)`` form, so
-    ``repro.core.encoder.DictState(**state_to_numpy(s))`` resumes there."""
-    out = {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
-    sb = out["sorted_blocks"]
-    out["raw_blocks"] = np.zeros(sb.shape[:-2] + (0, sb.shape[-1]), sb.dtype)
-    return out
-
-
-def _minmax_gate(xmin, xmax, dmin, dmax, r):
-    """Eq. (3): both block extremes inside +-w*r of the stored extremes.
-    ``r`` is a tensor of the carry's dtype, so each product and difference
-    rounds in that dtype."""
-    w = dmax - dmin
-    t = w * r
-    return ((xmin >= dmin - t) & (xmin <= dmin + t)
-            & (xmax >= dmax - t) & (xmax <= dmax + t))
+    fields, so ``repro.core.encoder.DictState(**state_to_numpy(s))``
+    resumes there."""
+    return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
 
 
 def matcher_reference(xs_sorted, dict_sorted, dmin, dmax, rel_tol):
     """Plain matcher: ``(ks (..., D), mm (..., D))`` of sorted candidates
     ``(..., n)`` against every dictionary row ``(..., D, n)``."""
     ks = ks_statistic_many(xs_sorted, dict_sorted)
-    r = torch.tensor(rel_tol, dtype=dmin.dtype, device=dmin.device)
-    mm = _minmax_gate(xs_sorted[..., :1], xs_sorted[..., -1:], dmin, dmax, r)
+    r = torch.tensor(rel_tol, dtype=dmin.dtype)
+    mm = minmax_gate(xs_sorted[..., :1], xs_sorted[..., -1:], dmin, dmax, r)
     return ks, mm
 
 
-def _decide(state: DictState, xs, ok, valid):
-    """Second half of a step, shared by the reference and fused plain
-    steps: the lowest passing row (``ok`` (C, D)) or the FIFO insert of the
-    sorted candidates ``xs`` (C, n) at ``count % D``.  A False ``valid``
-    (C,) step leaves its channel's carry untouched and decides all-zero."""
+def _decide(state: DictState, xs, ok, valid, raw=None):
+    """Second half of a step, shared by every plain step: the lowest
+    passing row (``ok`` (C, D)) or the FIFO insert of the sorted candidates
+    ``xs`` (C, n) -- and, in the error-bounded mode, of their raw rows
+    ``raw`` (C, n) -- at ``count % D``.  A False ``valid`` (C,) step leaves
+    its channel's carry untouched and decides all-zero."""
     num_dict = state.sorted_blocks.shape[-2]
     ids = torch.arange(num_dict, dtype=torch.int32, device=xs.device)
     best = torch.where(ok, ids, SENTINEL).amin(-1)
@@ -144,6 +165,9 @@ def _decide(state: DictState, xs, ok, valid):
     slot = torch.where(is_hit, best, ins)
     slot = torch.where(valid, slot, 0).to(torch.int32)
     upd = (ids == ins[:, None]) & do_ins[:, None]          # (C, D)
+    raw_blocks = state.raw_blocks
+    if raw is not None:
+        raw_blocks = torch.where(upd[..., None], raw[:, None, :], raw_blocks)
     new_state = DictState(
         sorted_blocks=torch.where(upd[..., None], xs[:, None, :],
                                   state.sorted_blocks),
@@ -151,37 +175,136 @@ def _decide(state: DictState, xs, ok, valid):
         dmax=torch.where(upd, xs[:, -1:], state.dmax),
         valid=state.valid | upd,
         count=state.count + do_ins.to(torch.int32),
+        raw_blocks=raw_blocks,
     )
     return new_state, (is_hit, slot, overwrite)
 
 
-def _step(params: EncoderParams, state: DictState, xs, valid):
-    """One reference step for C channels: sorted candidates ``xs`` (C, n),
-    ragged-padding mask ``valid`` (C,)."""
-    ks, mm = matcher_reference(xs, state.sorted_blocks, state.dmin,
-                               state.dmax, params.rel_tol)
+def _step(matcher: str, params: EncoderParams, state: DictState, xs, valid,
+          raw):
+    """One step for C channels: sorted candidates ``xs`` (C, n), their raw
+    rows ``raw`` (C, n), ragged-padding mask ``valid`` (C,).  ``matcher``
+    is ``"reference"`` (plain tensor matching) or ``"ops"`` (K3)."""
+    if matcher == "ops":
+        from ..kernels import ops
+        ks, mm = ops.dict_match(xs, state.sorted_blocks, state.dmin,
+                                state.dmax, params.rel_tol)
+    else:
+        ks, mm = matcher_reference(xs, state.sorted_blocks, state.dmin,
+                                   state.dmax, params.rel_tol)
     ok = state.valid
     if params.use_minmax:
         ok = ok & mm
     if params.use_ks:
-        ok = ok & (ks <= torch.tensor(params.d_crit, dtype=torch.float32,
-                                      device=ks.device))
-    return _decide(state, xs, ok, valid)
+        ok = ok & (ks <= torch.tensor(params.d_crit, dtype=torch.float32))
+    if params.error_bound is None:
+        return _decide(state, xs, ok, valid)
+    ok = ok & error_gate(raw, state.raw_blocks, params.error_bound,
+                         params.error_cumulative)
+    return _decide(state, xs, ok, valid, raw)
 
 
-def _resolve_matcher(matcher) -> str:
+# ------------------------------------------- measured matcher autotuning
+#
+# ``matcher="auto"``: the first use of a (D, n, dtype, device) combination
+# times the reference, ops and fused scans on a probe, routes the
+# combination to the fastest, and persists the choice under
+# ``REPRO_TORCH_ENCODE_AUTOTUNE`` (the reference package's cache lives
+# under another variable: the two never read each other's timings).
+
+ENCODE_AUTOTUNE_VERSION = 1
+_PROBE_BLOCKS = 8
+
+_TUNER = MeasuredTuner(
+    version=ENCODE_AUTOTUNE_VERSION, env_var="REPRO_TORCH_ENCODE_AUTOTUNE",
+    validate_entry=lambda ent: ent.get("matcher") in MATCHERS, log=logger)
+
+
+def _matcher_key(num_dict: int, n: int, dtype, device) -> str:
+    dt = str(dtype).replace("torch.", "")
+    return (f"D={int(num_dict)}|n={int(n)}|dtype={dt}"
+            f"|device={resolve_device(device).type}")
+
+
+def load_encode_autotune(path: str, strict: bool = True) -> int:
+    """Load persisted matcher choices (see ``core.tuning``); entry count."""
+    return _TUNER.load(path, strict=strict)
+
+
+def save_encode_autotune(path: str) -> None:
+    """Persist the in-memory matcher choices (atomic replace)."""
+    _TUNER.save(path)
+
+
+def reset_encode_autotune() -> None:
+    """Forget every matcher choice; the next ``"auto"`` re-probes."""
+    _TUNER.reset()
+
+
+def encode_autotune_choices() -> dict:
+    """Current ``matcher="auto"`` routing table: key -> matcher name."""
+    return _TUNER.choices("matcher")
+
+
+def encode_autotune_cached(num_dict: int, n: int, dtype, device=None) -> bool:
+    """Whether ``matcher="auto"`` for (D, n, dtype) on ``device`` (default
+    ``"cuda"``) resolves from the table."""
+    return _TUNER.cached(_matcher_key(num_dict, n, dtype, device))
+
+
+def _probe_matcher(num_dict: int, n: int, dtype, device) -> dict:
+    """Time each matcher on a short probe scan at the real (D, n, dtype)
+    on ``device``.  A candidate that fails raises: a kernel that does not
+    build or launch is never hidden behind another choice."""
+    rng = np.random.default_rng(0)
+    # mixture source: the dictionary fills, then hits and misses both occur
+    blocks = torch.as_tensor(np.concatenate([
+        rng.normal(m, s, size=(_PROBE_BLOCKS // 2, n))
+        for m, s in [(0.0, 1.0), (5.0, 0.5)]]), dtype=dtype, device=device)
+    kw = dict(num_dict=num_dict, d_crit=0.35, rel_tol=0.5)
+
+    def run(m):
+        encode_decisions(blocks, matcher=m, **kw)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    times = {m: best_of(lambda m=m: run(m)) for m in MATCHERS}
+    winner = min(sorted(times), key=times.get)
+    return {"matcher": winner, "tile_d": None,
+            "times_us": {k: round(v * 1e6, 3) for k, v in times.items()}}
+
+
+def resolve_matcher(matcher, *, num_dict: int, n: int, dtype,
+                    device=None) -> str:
+    """Concrete matcher name for an encode call.
+
+    ``None`` -> ``"reference"``; names in :data:`MATCHERS` pass through;
+    ``"auto"`` serves the measured choice for (D, n, dtype, device),
+    probing (and persisting) on first use.  Anything else raises
+    ``ValueError``."""
     if matcher is None:
         return "reference"
     if matcher in MATCHERS:
         return matcher
-    if matcher == "ops":
-        raise ValueError("matcher='ops' waits for the port of the dict_match "
-                         "kernel (ROADMAP Queue 2, K3)")
     if matcher == "auto":
-        raise ValueError("matcher='auto' waits for the port of the measured "
-                         "tuner (ROADMAP Queue 1 item 4)")
+        device = resolve_device(device)
+        key = _matcher_key(num_dict, n, dtype, device)
+        with _TUNER.lock:
+            hit = _TUNER.cached(key)
+            ent = _TUNER.resolve(key, lambda: _probe_matcher(
+                int(num_dict), int(n), dtype, device))
+            if not hit:
+                logger.info("encode autotune: %s -> %s %s", key,
+                            ent["matcher"], ent["times_us"])
+        return ent["matcher"]
     raise ValueError(f"unknown matcher {matcher!r}; expected None or one of "
-                     f"{MATCHERS}")
+                     f"{MATCHERS + ('auto',)}")
+
+
+def _empty_decisions(C: int, dev):
+    return (torch.zeros((C, 0), dtype=torch.bool, device=dev),
+            torch.zeros((C, 0), dtype=torch.int32, device=dev),
+            torch.zeros((C, 0), dtype=torch.bool, device=dev))
 
 
 def encode_decisions_batched(
@@ -192,6 +315,8 @@ def encode_decisions_batched(
     rel_tol: float = 0.1,
     use_minmax: bool = True,
     use_ks: bool = True,
+    error_bound: Optional[float] = None,
+    error_cumulative: bool = False,
     matcher: Optional[str] = None,
     state: Optional[DictState] = None,
     valid: Optional[torch.Tensor] = None,
@@ -202,39 +327,42 @@ def encode_decisions_batched(
     ``(is_hit, slot, overwrite)``; resumable (``state=init_state(...,
     channels=C)`` or a previous return) returns ``((is_hit, slot,
     overwrite), new_state)``.  ``valid`` (C, nb) masks padded blocks of
-    ragged channels.  The input state is not modified.
+    ragged channels.  ``error_bound`` needs a carry with raw rows
+    (``init_state(..., raw=True)``; a one-shot call makes one).  The input
+    state is not modified.
     """
-    m = _resolve_matcher(matcher)
     C, nb, n = blocks_cn.shape
     dev = blocks_cn.device
+    m = resolve_matcher(matcher, num_dict=num_dict, n=n,
+                        dtype=blocks_cn.dtype, device=dev)
     return_state = state is not None
     if state is None:
         state = init_state(num_dict, n, dtype=blocks_cn.dtype, channels=C,
-                           device=dev)
+                           device=dev, raw=error_bound is not None)
+    if error_bound is not None and state.raw_blocks.shape[-2] == 0:
+        raise ValueError("error_bound requires a state created with "
+                         "init_state(..., raw=True)")
     if valid is None:
         valid = torch.ones((C, nb), dtype=torch.bool, device=dev)
     xs_all = torch.sort(blocks_cn, dim=-1).values  # hoisted out of the step
+    eb = dict(error_bound=None if error_bound is None else float(error_bound),
+              error_cumulative=bool(error_cumulative))
     if m == "fused":
         from ..kernels.encode_step import encode_scan
         out, state = encode_scan(xs_all, valid, state, d_crit=d_crit,
                                  rel_tol=rel_tol, use_minmax=use_minmax,
-                                 use_ks=use_ks)
+                                 use_ks=use_ks, raw=blocks_cn, **eb)
     else:
         params = EncoderParams(float(d_crit), float(rel_tol),
-                               bool(use_minmax), bool(use_ks))
-        hs, ss, os_ = [], [], []
+                               bool(use_minmax), bool(use_ks), **eb)
+        acc = ([], [], [])
         for b in range(nb):
-            state, (h, s, o) = _step(params, state, xs_all[:, b],
-                                     valid[:, b])
-            hs.append(h)
-            ss.append(s)
-            os_.append(o)
-        if nb:
-            out = tuple(torch.stack(v, dim=1) for v in (hs, ss, os_))
-        else:
-            out = (torch.zeros((C, 0), dtype=torch.bool, device=dev),
-                   torch.zeros((C, 0), dtype=torch.int32, device=dev),
-                   torch.zeros((C, 0), dtype=torch.bool, device=dev))
+            state, dec = _step(m, params, state, xs_all[:, b], valid[:, b],
+                               blocks_cn[:, b])
+            for a, v in zip(acc, dec):
+                a.append(v)
+        out = (tuple(torch.stack(a, dim=1) for a in acc) if nb
+               else _empty_decisions(C, dev))
     return (out, state) if return_state else out
 
 

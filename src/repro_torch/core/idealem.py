@@ -16,10 +16,17 @@ keeps the FIFO dictionary alive between chunks:
 
 Encode backends: ``"cuda"`` (the hand-written fused scan kernel, default),
 ``"torch"`` (the plain tensor scan) and ``"numpy"`` (the sequential
-early-exit reference); all three are decision-identical.  Decode backends
-are ``core.decode.BACKENDS``.  Both run on ``device`` (default ``"cuda"``,
-an error when no GPU is present); ``device="cpu"`` runs the kernels' plain
-versions on the host.
+early-exit reference); all three are decision-identical.  On the tensor
+backends ``matcher=`` picks the scan instead: ``"reference"``, ``"ops"``
+(the hand-written dict_match kernel plus the tensor step), ``"fused"`` or
+``"auto"`` (measured).  Decode backends are ``core.decode.BACKENDS``.  Both
+run on ``device`` (default ``"cuda"``, an error when no GPU is present);
+``device="cpu"`` runs the kernels' plain versions on the host.
+
+Error-bounded mode (``error_bound=t`` or ``error_bound_rel``): every
+decoded sample differs from its original by at most ``t`` (circular
+distance when ``value_range`` wraps); would-be hits that break the bound
+become misses and the decode skips the hit permutation.
 """
 from __future__ import annotations
 
@@ -58,13 +65,21 @@ class IdealemCodec:
     value_range: Optional[Tuple[float, float]] = None
     backend: str = "cuda"
     # encode matcher for the tensor backends: None keeps the backend default
-    # (torch -> reference scan, cuda -> fused kernel), or "reference"/"fused"
+    # (torch -> reference scan, cuda -> fused kernel), or one of
+    # "reference" | "ops" | "fused" | "auto" (measured, see core.tuning)
     matcher: Optional[str] = None
     decode_seed: int = 0
     decode_backend: str = "cuda"
     device: str = "cuda"
-    # not ported yet: set only to be told where they stand
+    # error-bounded mode: a would-be hit whose pointwise reconstruction
+    # error would exceed the bound is demoted to a miss, and hit decode
+    # skips the exchangeability permutation, so max|x - x_hat| <=
+    # error_bound on every sample (circular metric when value_range wraps).
+    # error_bound_rel is the bound as a fraction of the value_range width,
+    # resolved to an absolute error_bound here.
     error_bound: Optional[float] = None
+    error_bound_rel: Optional[float] = None
+    # not ported yet: set only to be told where it stands
     adaptive: bool = False
     d_crit: float = field(init=False)
     torch_device: torch.device = field(init=False)
@@ -77,16 +92,10 @@ class IdealemCodec:
         if self.decode_backend not in DECODE_BACKENDS:
             raise ValueError(
                 f"decode_backend must be one of {DECODE_BACKENDS}")
-        if self.matcher in ("ops", "auto"):
-            raise ValueError(
-                f"matcher={self.matcher!r} is not ported yet: 'ops' waits "
-                "for the dict_match kernel (ROADMAP Queue 2, K3), 'auto' for "
-                "the measured tuner (ROADMAP Queue 1 item 4)")
-        if self.matcher is not None and self.matcher not in MATCHERS:
-            raise ValueError(f"matcher must be None or one of {MATCHERS}")
-        if self.error_bound is not None:
-            raise ValueError("error-bounded mode is not ported yet (ROADMAP "
-                             "Queue 1 item 5)")
+        if self.matcher is not None and \
+                self.matcher not in MATCHERS + ("auto",):
+            raise ValueError(f"matcher must be None or one of "
+                             f"{MATCHERS + ('auto',)}")
         if self.adaptive:
             raise ValueError("adaptive mode selection is not ported yet "
                              "(ROADMAP Queue 1 item 6)")
@@ -96,6 +105,13 @@ class IdealemCodec:
             raise ValueError("max_count must be in [1, 255]")
         if self.block_size < 2:
             raise ValueError("block_size must be >= 2")
+        if self.error_bound_rel is not None:
+            if self.value_range is None:
+                raise ValueError("error_bound_rel requires value_range")
+            self.error_bound = float(self.error_bound_rel) * (
+                self.value_range[1] - self.value_range[0])
+        if self.error_bound is not None and not self.error_bound > 0:
+            raise ValueError("error_bound must be positive")
         n = self._lem_n()
         self.d_crit = critical_distance(self.alpha, n, n)
         self.torch_device = resolve_device(self.device)

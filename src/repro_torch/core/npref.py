@@ -2,8 +2,9 @@
 oracle for the tensor and kernel paths.
 
 Mirrors the early-exit C encoder semantics exactly: for each block, walk the
-dictionary in slot order, apply the min/max gate (eq. 3) then the KS test,
-take the first passing entry; FIFO insert on miss.
+dictionary in slot order, apply the min/max gate (eq. 3), the KS test and,
+in the error-bounded mode, the pointwise error check; take the first
+passing entry; FIFO insert on miss.
 
 The dictionary carry is resumable: pass ``state=np_init_state(num_dict)``
 and thread the returned state through chunked calls to get decisions
@@ -65,6 +66,8 @@ def encode_decisions_np(
     rel_tol: float = 0.1,
     use_minmax: bool = True,
     use_ks: bool = True,
+    error_bound: Optional[float] = None,
+    error_cumulative: bool = False,
     state: Optional[NpDictState] = None,
 ) -> Tuple[np.ndarray, ...]:
     """Sequential early-exit reference; same outputs as
@@ -99,6 +102,15 @@ def encode_decisions_np(
                     continue
             if use_ks and ks_statistic_np(x, dict_blocks[s]) > d_crit:
                 continue
+            if error_bound is not None:
+                # the stored raw row is what the no-permutation decode
+                # reproduces, so max|diff| over it (or over its running sum
+                # in delta mode) is the decode error
+                diff = x - dict_blocks[s]
+                if error_cumulative:
+                    diff = np.cumsum(diff)
+                if float(np.max(np.abs(diff))) > error_bound:
+                    continue
             hit = s
             break
         if hit >= 0:

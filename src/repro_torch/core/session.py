@@ -120,6 +120,10 @@ class IdealemSession:
         kw = dict(num_dict=cdc.num_dict, d_crit=float(cdc.d_crit),
                   rel_tol=float(cdc.rel_tol), use_minmax=cdc.use_minmax,
                   use_ks=cdc.use_ks)
+        eb = cdc.error_bound
+        if eb is not None:
+            kw["error_bound"] = float(eb)
+            kw["error_cumulative"] = cdc.mode == "delta"
         if cdc.backend == "numpy":
             from .npref import encode_decisions_np, np_init_state
             if self._np_states is None:
@@ -132,7 +136,7 @@ class IdealemSession:
             ]
         from .encoder import encode_decisions_batched, init_state
         # the "cuda" backend defaults to the fused kernel scan; an explicit
-        # codec matcher overrides
+        # codec matcher ("ops", "auto", ...) overrides
         kw["matcher"] = cdc.matcher or (
             "fused" if cdc.backend == "cuda" else None)
         # payloads reach the scan as f32 whatever the stream dtype
@@ -140,7 +144,8 @@ class IdealemSession:
                              device=cdc.torch_device)
         if self._dev_state is None:
             self._dev_state = init_state(cdc.num_dict, pt.shape[-1],
-                                         channels=self._C, device=pt.device)
+                                         channels=self._C, device=pt.device,
+                                         raw=eb is not None)
         (h, s, o), self._dev_state = encode_decisions_batched(
             pt, state=self._dev_state, **kw)
         h, s, o = (v.cpu().numpy() for v in (h, s, o))
@@ -153,7 +158,8 @@ class IdealemSession:
             mode=cdc.mode_id, block_size=cdc.block_size,
             num_dict=cdc.num_dict, max_count=cdc.max_count,
             dtype=self.dtype, value_range=cdc.value_range, n_blocks=nb,
-            tail=tail, more=more, cont=self._started[ci])
+            tail=tail, more=more, cont=self._started[ci],
+            error_bounded=cdc.error_bound is not None)
 
     def _emit(self, ci, raw, payload, bases, hit, slot, ovw, tail, more):
         header = self._make_header(len(raw), tail, more, ci)

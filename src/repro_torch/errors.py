@@ -1,12 +1,12 @@
 """Typed failures of the PyTorch port.
 
 The port keeps its own copies of the reference package's typed errors so it
-imports nothing from it.  Both keep ``ValueError`` in their bases, so
+imports nothing from it.  Each keeps ``ValueError`` in its bases, so
 ``except ValueError`` call sites work unchanged.
 """
 from __future__ import annotations
 
-__all__ = ["StreamFormatError", "KernelShapeError"]
+__all__ = ["StreamFormatError", "KernelShapeError", "AutotuneCacheError"]
 
 
 class StreamFormatError(ValueError):
@@ -23,3 +23,8 @@ class KernelShapeError(ValueError):
     """An operand's device, dtype, shape or layout violates a kernel's
     contract.  Raised by the kernel wrappers before any launch, with the
     offending dimensions in the message."""
+
+
+class AutotuneCacheError(ValueError):
+    """A persisted autotune cache failed validation (corrupt JSON, wrong
+    structure, or a stale ``version`` field)."""

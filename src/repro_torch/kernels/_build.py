@@ -4,7 +4,8 @@ Every ``src/repro_torch/csrc/<name>.cu`` has a plain C interface (no
 PyTorch headers, so each compiles in seconds) and becomes
 ``build/kernels/lib<name>.so`` under the checkout root, a git-ignored
 directory.  A source is rebuilt when its library is missing or older than
-the source; all stale sources compile at once, one ``nvcc`` process each.
+the source or a shared header (``csrc/*.cuh``); all stale sources compile
+at once, one ``nvcc`` process each.
 Each build's compiler output (``-Xptxas=-v``: registers, shared memory,
 spills) is kept beside the library as ``<name>.log``.
 
@@ -28,9 +29,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-# K1's decisions hinge on single-rounded f32 products and differences (the
-# eq. 3 gate and the ECDF gaps): nvcc must not contract them into FMAs.
-EXTRA_FLAGS = {"encode_step": ("-fmad=false",)}
+# K1's and K3's results hinge on single-rounded f32 products and
+# differences (the eq. 3 gate and the ECDF gaps): nvcc must not contract
+# them into FMAs.
+EXTRA_FLAGS = {"encode_step": ("-fmad=false",),
+               "dict_match": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -55,8 +58,13 @@ def build_log(name: str) -> str:
 
 
 def _stale(src: Path) -> bool:
+    """The library is missing or older than its source or a shared header
+    (``csrc/*.cuh``)."""
     lib = _lib_path(src.stem)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *CSRC_DIR.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def build_all(force: bool = False) -> Dict[str, float]:

@@ -2,33 +2,39 @@
 
 ``csrc/encode_step.cu`` replaces the TPU kernel
 ``repro/kernels/encode_step.py::encode_step_pallas`` (without its
-error-bound ``raw`` and mixed-mode ``chan`` operands).  Per block it applies
-the min/max gate (eq. 3), the KS distance (eq. 1) on the rows that pass the
-gate, picks the lowest passing row, decides hit/slot/overwrite and inserts
-the sorted block at ``count % D`` on a miss.  The CUDA kernel keeps one
-channel's dictionary resident in one CTA and walks all of the feed's blocks
-there, so a feed of C channels is one launch.
+mixed-mode ``chan`` operand).  Per block it applies the min/max gate
+(eq. 3), in the error-bounded mode the pointwise error gate on the raw
+rows (on their running sum when ``error_cumulative``), the KS distance
+(eq. 1) on the rows that pass both, picks the lowest passing row, decides
+hit/slot/overwrite and inserts the sorted block (and its raw row) at
+``count % D`` on a miss.  The CUDA kernel keeps one channel's dictionary
+resident in one CTA and walks all of the feed's blocks there, so a feed of
+C channels is one launch.
 
 :func:`encode_scan` launches the kernel for CUDA tensors and runs the plain
 version, :func:`encode_scan_torch`, for CPU tensors.  The plain version
 repeats the kernel's arithmetic: ECDF counts from broadcast compares and
-gaps scaled by ``inv_n = f32(1/n)``, as the TPU kernel computes them (the
-reference matcher divides by n instead; both decide alike because
-``critical_distance`` never sits on a multiple of 1/n).
+gaps scaled by ``inv_n = f32(1/n)``, as the TPU kernel computes them
+(:func:`repro_torch.kernels.ref.ks_counts`; the reference matcher divides
+by n instead, and both decide alike because ``critical_distance`` never
+sits on a multiple of 1/n), and the error gate in float32 with the running
+sum added left to right.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..core.encoder import DictState, _decide, _minmax_gate
+from ..core.encoder import DictState, _decide, _empty_decisions
 from ..errors import KernelShapeError
 from . import _build
+from .ref import error_gate, ks_counts, minmax_gate
 
 __all__ = ["encode_scan", "encode_scan_torch", "encode_step_torch",
-           "launches", "MAX_DICT"]
+           "dict_in_smem", "launches", "MAX_DICT"]
 
 #: Kernel launches since import (or since a caller reset it to 0).
 launches = 0
@@ -41,61 +47,49 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def ks_fused_torch(xs: torch.Tensor, ds: torch.Tensor,
-                   inv_n: float) -> torch.Tensor:
-    """KS distance with the kernel's arithmetic: ``xs`` (C, n) sorted
-    candidates, ``ds`` (C, D, n) sorted rows -> (C, D) float32."""
-    n = xs.shape[-1]
-    f32 = torch.float32
-    inv = torch.tensor(inv_n, dtype=f32, device=xs.device)
-    x = xs[:, None, None, :]                      # (C, 1, 1, n_j)
-    d_k = ds[:, :, :, None]                       # (C, D, n_k, 1)
-    cnt_d = (d_k <= x).sum(2).to(f32)             # (C, D, n_j): #{d <= x_j}
-    f_x = (torch.arange(n, dtype=f32, device=xs.device) + 1.0) * inv
-    d1 = torch.abs(f_x - cnt_d * inv).amax(-1)
-    cnt_x = (x <= d_k).sum(3).to(f32)             # (C, D, n_k): #{x <= d_k}
-    rank_d = (ds[:, :, None, :] <= d_k).sum(3).to(f32)  # #{d <= d_k}
-    d2 = torch.abs(cnt_x * inv - rank_d * inv).amax(-1)
-    return torch.maximum(d1, d2)
-
-
 def encode_step_torch(xs, valid, state: DictState, *, d_crit: float,
                       rel_tol: float, use_minmax: bool = True,
-                      use_ks: bool = True):
+                      use_ks: bool = True, raw=None,
+                      error_bound: Optional[float] = None,
+                      error_cumulative: bool = False):
     """Plain version of one step for C channels: sorted f32 candidates
-    ``xs`` (C, n), block mask ``valid`` (C,).  Returns
+    ``xs`` (C, n), block mask ``valid`` (C,) and, with ``error_bound``,
+    the raw rows ``raw`` (C, n).  Returns
     ``(new_state, (is_hit, slot, overwrite))``."""
     gate = state.valid
     if use_minmax:
-        r = torch.tensor(_f32(rel_tol), dtype=torch.float32, device=xs.device)
-        gate = gate & _minmax_gate(xs[:, :1], xs[:, -1:], state.dmin,
-                                   state.dmax, r)
+        r = torch.tensor(_f32(rel_tol), dtype=torch.float32)
+        gate = gate & minmax_gate(xs[:, :1], xs[:, -1:], state.dmin,
+                                  state.dmax, r)
+    if error_bound is not None:
+        gate = gate & error_gate(raw, state.raw_blocks, error_bound,
+                                 error_cumulative)
     if use_ks:
-        ks = ks_fused_torch(xs, state.sorted_blocks, _f32(1.0 / xs.shape[-1]))
-        gate = gate & (ks <= torch.tensor(_f32(d_crit), dtype=torch.float32,
-                                          device=xs.device))
-    return _decide(state, xs, gate, valid)
+        ks = ks_counts(xs, state.sorted_blocks, _f32(1.0 / xs.shape[-1]))
+        gate = gate & (ks <= torch.tensor(_f32(d_crit), dtype=torch.float32))
+    return _decide(state, xs, gate, valid,
+                   None if error_bound is None else raw)
 
 
-def encode_scan_torch(xs, valid, state: DictState, **params):
+def encode_scan_torch(xs, valid, state: DictState, *, raw=None, **params):
     """Plain version of the whole scan: ``xs`` (C, nb, n) sorted f32,
-    ``valid`` (C, nb).  Returns ``((is_hit, slot, overwrite), new_state)``
-    with (C, nb) decisions; ``params`` as :func:`encode_step_torch`."""
+    ``valid`` (C, nb), ``raw`` (C, nb, n) with ``error_bound``.  Returns
+    ``((is_hit, slot, overwrite), new_state)`` with (C, nb) decisions;
+    ``params`` as :func:`encode_step_torch`."""
     C, nb, _ = xs.shape
     out = ([], [], [])
     for b in range(nb):
-        state, dec = encode_step_torch(xs[:, b], valid[:, b], state, **params)
+        state, dec = encode_step_torch(
+            xs[:, b], valid[:, b], state,
+            raw=None if raw is None else raw[:, b], **params)
         for acc, v in zip(out, dec):
             acc.append(v)
     if nb == 0:
-        dev = xs.device
-        return ((torch.zeros((C, 0), dtype=torch.bool, device=dev),
-                 torch.zeros((C, 0), dtype=torch.int32, device=dev),
-                 torch.zeros((C, 0), dtype=torch.bool, device=dev)), state)
+        return _empty_decisions(C, xs.device), state
     return tuple(torch.stack(v, dim=1) for v in out), state
 
 
-def _check(xs, valid, state: DictState):
+def _check(xs, valid, state: DictState, raw, eb: bool):
     if xs.dim() != 3 or xs.dtype != torch.float32:
         raise KernelShapeError(
             f"encode_scan: xs must be (C, nb, n) float32, got "
@@ -110,11 +104,14 @@ def _check(xs, valid, state: DictState):
         "state.valid": (state.valid, (C, D), torch.bool),
         "count": (state.count, (C,), torch.int32),
     }
+    if eb:
+        want["raw"] = (raw, (C, nb, n), torch.float32)
+        want["raw_blocks"] = (state.raw_blocks, (C, D, n), torch.float32)
     for name, (t, shape, dtype) in want.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
+        if t is None or tuple(t.shape) != shape or t.dtype != dtype:
+            got = None if t is None else (tuple(t.shape), t.dtype)
             raise KernelShapeError(
-                f"encode_scan: {name} must be {shape} {dtype}, got "
-                f"{tuple(t.shape)} {t.dtype}")
+                f"encode_scan: {name} must be {shape} {dtype}, got {got}")
         if t.device != xs.device:
             raise KernelShapeError(
                 f"encode_scan: {name} on {t.device}, xs on {xs.device}")
@@ -125,45 +122,70 @@ def _check(xs, valid, state: DictState):
                                f"D={D}) outside the kernel's int32 range")
 
 
+def dict_in_smem(n: int, D: int, error_bound: bool) -> bool:
+    """Whether the kernel keeps a (D, n) dictionary -- with
+    ``error_bound``, and its raw rows -- in shared memory on the current
+    card (else in the carry-out buffers in global memory)."""
+    fn = _build.load("encode_step").encode_scan_dict_in_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return bool(fn(n, D, int(bool(error_bound))))
+
+
 def encode_scan(xs, valid, state: DictState, *, d_crit: float,
-                rel_tol: float, use_minmax: bool = True, use_ks: bool = True):
+                rel_tol: float, use_minmax: bool = True, use_ks: bool = True,
+                raw=None, error_bound: Optional[float] = None,
+                error_cumulative: bool = False):
     """Run the encode scan over a feed: ``xs`` (C, nb, n) float32 blocks
     sorted along the last axis, ``valid`` (C, nb) bool, ``state`` the
-    (C, D, ...) carry.  Returns ``((is_hit, slot, overwrite), new_state)``;
-    the input state is not modified.
+    (C, D, ...) carry.  With ``error_bound``, ``raw`` (C, nb, n) holds the
+    blocks in stream order and the carry its raw rows (C, D, n).  Returns
+    ``((is_hit, slot, overwrite), new_state)``; the input state is not
+    modified.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream or raise (:class:`KernelShapeError` for operands the
     kernel does not take, ``RuntimeError`` for a failed launch).
     """
     params = dict(d_crit=d_crit, rel_tol=rel_tol, use_minmax=use_minmax,
-                  use_ks=use_ks)
+                  use_ks=use_ks, error_bound=error_bound,
+                  error_cumulative=error_cumulative)
+    eb = error_bound is not None
     if xs.device.type == "cpu":
-        return encode_scan_torch(xs, valid, state, **params)
+        return encode_scan_torch(xs, valid, state, raw=raw if eb else None,
+                                 **params)
     if xs.device.type != "cuda":
         raise KernelShapeError(f"encode_scan: unsupported device {xs.device}")
-    _check(xs, valid, state)
+    _check(xs, valid, state, raw, eb)
     C, nb, n = xs.shape
     D = state.sorted_blocks.shape[-2]
     xs, valid = xs.contiguous(), valid.contiguous()
     sin = DictState(*(f.contiguous() for f in state))
-    sout = DictState(*(torch.empty_like(f) for f in sin))
+    # without the bound the raw rows pass through untouched
+    sout = DictState(*(torch.empty_like(f) for f in sin[:5]),
+                     torch.empty_like(sin.raw_blocks) if eb
+                     else sin.raw_blocks)
     is_hit = torch.empty((C, nb), dtype=torch.bool, device=xs.device)
     slot = torch.empty((C, nb), dtype=torch.int32, device=xs.device)
     overwrite = torch.empty((C, nb), dtype=torch.bool, device=xs.device)
     if C == 0 or nb == 0:
-        return (is_hit, slot, overwrite), DictState(*(f.clone() for f in sin))
+        return (is_hit, slot, overwrite), DictState(
+            *(f.clone() for f in sin[:5]), sin.raw_blocks)
+    raw = raw.contiguous() if eb else None
+    raw_ptrs = ((raw.data_ptr(), sin.raw_blocks.data_ptr(),
+                 sout.raw_blocks.data_ptr()) if eb else (None, None, None))
     fn = _build.load("encode_step").encode_scan_f32
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4 \
+        + [ctypes.c_float] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    ptrs = [t.data_ptr() for t in (xs, valid, *sin, *sout, is_hit, slot,
-                                   overwrite)]
+    ptrs = [t.data_ptr() for t in (xs, valid, *sin[:5], *sout[:5], is_hit,
+                                   slot, overwrite)]
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
-        rc = fn(*ptrs, C, nb, n, D, _f32(d_crit), _f32(rel_tol),
-                _f32(1.0 / n), int(bool(use_minmax)), int(bool(use_ks)),
-                stream)
+        rc = fn(*ptrs, *raw_ptrs, C, nb, n, D, _f32(d_crit), _f32(rel_tol),
+                _f32(1.0 / n), _f32(error_bound) if eb else 0.0,
+                int(bool(use_minmax)), int(bool(use_ks)), int(eb),
+                int(bool(error_cumulative)), stream)
     if rc != 0:
         raise RuntimeError(f"encode_scan kernel launch failed: CUDA error {rc}")
     global launches

@@ -1,0 +1,88 @@
+"""Plain PyTorch versions of the kernels' matching arithmetic.
+
+:func:`ks_counts` is the KS distance as the TPU kernels compute it: ECDF
+counts from broadcast compares (order-free, so rows may be in any order)
+and gaps scaled by ``inv_n = f32(1/n)``, each product and difference
+rounded in float32.  :func:`minmax_gate` (eq. 3) and :func:`error_gate`
+(the error-bounded mode's pointwise check) are the gates beside it.  K1's
+plain scan (``encode_step.py``), K3's plain matcher (:func:`dict_match_ref`)
+and the encoder's plain steps (``core/encoder.py``) share them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["ks_counts", "minmax_gate", "error_gate", "dict_match_ref"]
+
+
+def ks_counts(xs: torch.Tensor, ds: torch.Tensor,
+              inv_n: float) -> torch.Tensor:
+    """KS distance of sorted float32 candidates ``xs`` (..., n) against
+    float32 rows ``ds`` (..., D, n) in any order -> (..., D) float32.
+
+    d1 is taken at the candidate's points (``(j+1)/n`` against
+    ``#{d <= x_j}/n``), d2 at each row's own points (``#{x <= d_k}/n``
+    against the row's rank ``#{d <= d_k}/n``).  NaNs compare false and
+    count 0, as in the kernels."""
+    n = xs.shape[-1]
+    f32 = torch.float32
+    inv = torch.tensor(inv_n, dtype=f32)  # CPU 0-dim: no copy, no sync
+    x = xs[..., None, None, :]                    # (..., 1, 1, n_j)
+    d_k = ds[..., :, :, None]                     # (..., D, n_k, 1)
+    cnt_d = (d_k <= x).sum(-2).to(f32)            # (..., D, n_j): #{d <= x_j}
+    f_x = (torch.arange(n, dtype=f32, device=xs.device) + 1.0) * inv
+    d1 = torch.abs(f_x - cnt_d * inv).amax(-1)
+    cnt_x = (x <= d_k).sum(-1).to(f32)            # (..., D, n_k): #{x <= d_k}
+    rank_d = (ds[..., :, None, :] <= d_k).sum(-1).to(f32)  # #{d <= d_k}
+    d2 = torch.abs(cnt_x * inv - rank_d * inv).amax(-1)
+    return torch.maximum(d1, d2)
+
+
+def minmax_gate(xmin, xmax, dmin, dmax, r):
+    """Eq. (3): both block extremes inside +-w*r of the stored extremes.
+    ``r`` is a tensor of the carry's dtype, so each product and difference
+    rounds in that dtype.
+
+    Scalar operands of the steps are 0-dim tensors on the CPU: PyTorch
+    takes them beside CUDA operands without a host-to-device copy, which
+    would wait for the stream at every block step."""
+    w = dmax - dmin
+    t = w * r
+    return ((xmin >= dmin - t) & (xmin <= dmin + t)
+            & (xmax >= dmax - t) & (xmax <= dmax + t))
+
+
+def error_gate(raw, raw_blocks, error_bound: float, cumulative: bool):
+    """Per-row pointwise error check of raw blocks ``raw`` (C, n) against
+    the stored raw rows (C, D, n): ``max|diff| <= bound`` (C, D), where
+    diff is the payload difference (std/residual: decoded samples differ
+    from the original by exactly this) or, with ``cumulative`` (delta:
+    decoded samples are base + cumsum of stored diffs), its running sum.
+    Computed in the carry's dtype; the running sum adds one column at a
+    time, left to right (``torch.cumsum`` does not add in that order).  A
+    NaN anywhere fails the row, as a NaN maximum does."""
+    diff = raw[:, None, :] - raw_blocks
+    if cumulative:  # in place, one column at a time
+        for k in range(1, diff.shape[-1]):
+            diff[..., k] += diff[..., k - 1]
+    bound = torch.tensor(error_bound, dtype=diff.dtype)
+    return (diff.abs() <= bound).all(-1)
+
+
+def dict_match_ref(xs: torch.Tensor, rows: torch.Tensor, dmin: torch.Tensor,
+                   dmax: torch.Tensor, rel_tol: float):
+    """Plain version of K3: ``(ks, mm)`` of sorted candidates ``xs`` (C, n)
+    against rows (C, D, n) in any order, with the eq. 3 gate on ``dmin`` /
+    ``dmax`` (C, D).  Unbatched operands ((n,), (D, n), (D,)) give (D,)
+    results.  Every operand is float32 (:func:`repro_torch.kernels.ops.
+    dict_match` casts); ``rel_tol`` is rounded to float32 as the TPU
+    kernel's operand is."""
+    if xs.dim() == 1:
+        ks, mm = dict_match_ref(xs[None], rows[None], dmin[None], dmax[None],
+                                rel_tol)
+        return ks[0], mm[0]
+    ks = ks_counts(xs, rows, float(np.float32(1.0 / xs.shape[-1])))
+    r = torch.tensor(float(np.float32(rel_tol)), dtype=torch.float32)
+    mm = minmax_gate(xs[..., :1], xs[..., -1:], dmin, dmax, r)
+    return ks, mm

@@ -153,8 +153,7 @@ def test_truncated_stream_raises_typed_error():
 
 # ------------------------------------------------------- scope and device
 def test_unported_options_raise():
-    for kw in (dict(matcher="ops"), dict(matcher="auto"),
-               dict(error_bound=0.1), dict(adaptive=True),
+    for kw in (dict(adaptive=True), dict(matcher="warp"),
                dict(backend="pallas"), dict(decode_backend="jax")):
         with pytest.raises(ValueError):
             _codec(**kw)

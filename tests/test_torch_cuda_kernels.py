@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each held against its plain version
-(decisions and carry equal, cumsum bitwise), plus the golden corpus through
-``backend="cuda"``.  Marked ``cuda``; without a card every test skips.
+(decisions and carry equal, cumsum and KS distances bitwise), plus the
+golden corpus through ``backend="cuda"`` and the ``"ops"`` matcher.  Marked
+``cuda``; without a card every test skips.
 
 Run on a machine with a card: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda_kernels.py``.
@@ -15,7 +16,9 @@ torch = pytest.importorskip("torch")
 from conftest import GOLDEN_CASES, golden_codec_kwargs, golden_signal  # noqa: E402
 from repro_torch import IdealemCodec, KernelShapeError  # noqa: E402
 from repro_torch.core.encoder import init_state  # noqa: E402
+from repro_torch.kernels import dict_match as k3  # noqa: E402
 from repro_torch.kernels import encode_step as k1  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import seq_cumsum as k2  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -49,6 +52,75 @@ def test_encode_scan_matches_plain(dev, D, n):
     want, wst = k1.encode_scan_torch(xs, valid, st, **kw)
     for a, b in zip((*got, *gst), (*want, *wst)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D,n", [(1, 7), (9, 32), (255, 111), (255, 256)])
+@pytest.mark.parametrize("cumulative", [False, True])
+def test_encode_scan_error_bound_matches_plain(dev, D, n, cumulative):
+    rng = np.random.default_rng(D + n)
+    raw = torch.from_numpy(np.concatenate(
+        [rng.normal(m, s, size=(3, 150, n)) for m, s in [(0, 1), (5, 0.5)]],
+        axis=1)).to(dev, torch.float32)
+    xs = torch.sort(raw, dim=-1).values
+    valid = torch.ones(xs.shape[:2], dtype=torch.bool, device=dev)
+    valid[2, ::4] = False
+    st = init_state(D, n, channels=3, device=dev, raw=True)
+    kw = dict(d_crit=(int(0.4 * n) + 0.5) / n, rel_tol=0.5, raw=raw,
+              error_bound=2.0 if cumulative else 1.5,
+              error_cumulative=cumulative)
+    got, gst = k1.encode_scan(xs, valid, st, **kw)
+    want, wst = k1.encode_scan_torch(xs, valid, st, **kw)
+    for a, b in zip((*got, *gst), (*want, *wst)):
+        assert torch.equal(a, b)
+    assert k1.dict_in_smem(n, D, True) == (D * n <= 255 * 111)
+
+
+@pytest.mark.parametrize("D,n", [(1, 7), (8, 32), (9, 111), (255, 256)])
+@pytest.mark.parametrize("C", [1, 64])
+def test_dict_match_matches_plain(dev, C, D, n):
+    rng = np.random.default_rng(C + D + n)
+    xs = torch.sort(torch.from_numpy(rng.normal(size=(C, n))).to(
+        dev, torch.float32), dim=-1).values
+    rows = torch.from_numpy(rng.normal(size=(C, D, n))).to(dev, torch.float32)
+    rows[:, 0] = xs[:, torch.randperm(n, device=dev)]  # distance 0
+    dmin, dmax = rows.amin(-1), rows.amax(-1)
+    before = k3.launches
+    ks, mm = k3.dict_match_cuda(xs, rows, dmin, dmax, 0.3)
+    assert k3.launches == before + 1
+    ks_p, mm_p = ref.dict_match_ref(xs, rows, dmin, dmax, 0.3)
+    assert torch.equal(ks, ks_p) and torch.equal(mm, mm_p)
+    assert not bool(ks[:, 0].any())
+    srt = torch.sort(rows, dim=-1).values
+    assert torch.equal(ops.dict_match_ks(xs, srt),
+                       ref.ks_counts(xs, srt, float(np.float32(1.0 / n))))
+
+
+def test_dict_match_rejects_bad_operands(dev):
+    xs = torch.zeros((2, 8), device=dev)
+    rows = torch.zeros((2, 3, 8), device=dev)
+    lo = torch.zeros((2, 3), device=dev)
+    with pytest.raises(KernelShapeError):
+        k3.dict_match_cuda(xs.double(), rows, lo, lo, 0.5)
+    with pytest.raises(KernelShapeError):
+        k3.dict_match_cuda(xs, rows[:, :, :4], lo, lo, 0.5)
+    with pytest.raises(KernelShapeError):
+        k3.dict_match_cuda(xs, rows.transpose(1, 2).contiguous()
+                           .transpose(1, 2), lo, lo, 0.5)
+
+
+@pytest.mark.parametrize("mode", ["std", "delta"])
+def test_ops_matcher_streams_equal_fused(dev, mode):
+    x = np.random.default_rng(3).normal(size=(4, 16 * 200))
+    outs = {}
+    for matcher in ("ops", "fused"):
+        k3.launches = 0
+        codec = IdealemCodec(mode=mode, block_size=16, num_dict=32,
+                             alpha=0.05, matcher=matcher, error_bound=2.0)
+        s = codec.session(channels=4)
+        outs[matcher] = [a + b for a, b in zip(s.feed(x), s.finish())]
+        if matcher == "ops":
+            assert k3.launches == 200
+    assert outs["ops"] == outs["fused"]
 
 
 def test_encode_scan_rejects_bad_operands(dev):

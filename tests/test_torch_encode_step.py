@@ -212,13 +212,19 @@ def test_port_half_scan_resumes_in_jax():
 
 
 def test_state_from_numpy_rejects_error_bounded_carry():
-    st = jenc.init_state(4, 8, raw=True)
+    """An error-bounded carry crosses over with its raw rows; one whose raw
+    rows match neither the empty form nor the dictionary is rejected."""
+    st = jenc.DictState(*(np.asarray(f) for f in jenc.init_state(4, 8,
+                                                                  raw=True)))
+    assert tuple(tenc.state_from_numpy(st, device="cpu").raw_blocks.shape) \
+        == (4, 8)
     with pytest.raises(ValueError, match="raw_blocks"):
-        tenc.state_from_numpy(jenc.DictState(*(np.asarray(f) for f in st)))
+        tenc.state_from_numpy(st._replace(raw_blocks=np.zeros((3, 8))),
+                              device="cpu")
 
 
 def test_unported_matchers_raise():
     blocks = torch.zeros((2, 8))
-    for m in ("ops", "auto", "nope"):
-        with pytest.raises(ValueError):
+    for m in ("nope", "pallas"):
+        with pytest.raises(ValueError, match="unknown matcher"):
             tenc.encode_decisions(blocks, num_dict=2, d_crit=0.5, matcher=m)
