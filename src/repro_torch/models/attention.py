@@ -1,0 +1,255 @@
+"""Attention of the LM serve path: RoPE, GQA, the chunked online-softmax
+forward, and single-token decode against a ring KV cache through K4.
+
+The counterpart of ``repro/models/attention.py``.  :func:`decode_attention`
+is the serve hot spot: its core (pre-scaled float32 query against the
+cache, masked to -1e30 by ``valid``, softmax, weighted V) is the TPU
+kernel ``flash_decode_pallas``'s function, and on the card it launches
+the port's K4 (``repro_torch.kernels.flash_decode``) without a repeated
+copy of the cache.  The forward path (:func:`attention`, :func:`_flash`)
+is plain PyTorch, as the reference's is plain jnp.
+
+Differences from the reference, by design:
+
+* the cache slot of the new token is written in place, where the
+  reference returns a new cache from ``dynamic_update_slice``; at full
+  width a functional update would copy the whole 2.68 GB cache each step.
+  ``KVCache.length`` is a Python int (every sequence of a batch is at the
+  same position, as in the reference).
+* ``_flash_banded`` (the reference's banded sliding-window prefill) is not
+  ported; a forward that would take it raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..kernels.flash_decode import NEG_INF, flash_decode, flash_decode_torch
+from .common import ModelConfig, dense_init
+
+__all__ = ["rope", "rope_angles", "init_attention", "attention", "KVCache", "init_kv_cache",
+           "ring_valid", "decode_attention", "prefill_kv", "BACKENDS"]
+
+#: ``"cuda"``: the decode core through K4 (its plain version on CPU
+#: tensors); ``"torch"``: the plain version on any device.
+BACKENDS = ("cuda", "torch")
+
+# ---------------------------------------------------------------------- RoPE
+def rope_angles(positions, hd: int, theta: float = 1e4):
+    """(cos, sin), each (..., S, 1, hd/2) float32, of the rotation angles
+    at ``positions`` (..., S), as the reference computes them."""
+    half = hd // 2
+    # log(theta) in float32, taken on the host: a host tensor moved to the
+    # card would be a copy that waits for the stream
+    log_theta = float(np.log(np.float32(theta)))
+    freqs = torch.exp(-log_theta * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., :, None].float() * freqs  # (..., S, half)
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def _rotate(x, cos, sin):
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope(x, positions, theta: float = 1e4):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    return _rotate(x, *rope_angles(positions, x.shape[-1], theta))
+
+
+# -------------------------------------------------------------- param blocks
+def init_attention(cfg: ModelConfig, generator=None, device=None):
+    """Projection weights in ``cfg.dtype`` (see ``models.layers``)."""
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    kw = dict(dtype=cfg.dtype, generator=generator, device=device)
+    return {
+        "wq": dense_init((d, h * hd), 0, **kw),
+        "wk": dense_init((d, kvh * hd), 0, **kw),
+        "wv": dense_init((d, kvh * hd), 0, **kw),
+        "wo": dense_init((h * hd, d), 0, **kw),
+    }
+
+
+# ------------------------------------------------------- flash core (q long)
+def _flash(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
+           chunk: int, kv_len=None):
+    """q: (B,S,H,hd), k/v: (B,T,H,hd) (kv already repeated to H heads).
+
+    Returns (B,S,H,hd): the online softmax over kv chunks of ``chunk``
+    positions, products of compute-dtype operands accumulated in float32
+    (the reference's ``preferred_element_type``).  Masks: causal, sliding
+    window, ``kv_len`` for padded caches."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    chunk = min(chunk, T)
+    if (window is not None and causal and S == T and kv_len is None
+            and S % chunk == 0 and S // chunk > window // chunk + 1):
+        raise NotImplementedError(
+            f"banded sliding-window prefill (S={S}, window={window}, "
+            f"chunk={chunk}) is not ported: see ROADMAP.md Queue 1 item 12 "
+            f"(_flash_banded)")
+    pad = (-T) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.nn.functional.pad(
+            kv_pos, (0, pad), value=np.iinfo(np.int32).max // 2)
+    nchunk = k.shape[1] // chunk
+    # the scale rounded to the compute dtype, as the reference's
+    scale = float(torch.tensor(1.0 / np.sqrt(hd), dtype=q.dtype))
+    qs = (q * scale).float()
+
+    o = torch.zeros((B, H, S, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+    for j in range(nchunk):
+        sl = slice(j * chunk, (j + 1) * chunk)
+        kb, vb, pb = k[:, sl], v[:, sl], kv_pos[sl]
+        s = torch.einsum("bshd,bthd->bhst", qs, kb.float())
+        mask = torch.ones((S, chunk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= pb[None, :]
+        if window is not None:
+            mask &= (q_pos[:, None] - pb[None, :]) < window
+        if kv_len is not None:
+            mask &= pb[None, :] < kv_len
+        s = torch.where(mask[None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bhst,bthd->bhsd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    return o.transpose(1, 2).to(q.dtype)  # (B,S,H,hd)
+
+
+def _repeat_kv(x, h: int):
+    kvh = x.shape[2]
+    if kvh == h:
+        return x
+    return torch.repeat_interleave(x, h // kvh, dim=2)
+
+
+def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
+              positions=None, use_rope=True):
+    """Self-attention over x (B,S,d) for prefill (the forward path)."""
+    B, S, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, h, hd)
+    k = (x @ p["wk"].to(dt)).reshape(B, S, kvh, hd)
+    v = (x @ p["wv"].to(dt)).reshape(B, S, kvh, hd)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    o = _flash(q, k, v, positions, positions, causal=causal, window=window,
+               chunk=cfg.attn_chunk)
+    return o.reshape(B, S, h * hd) @ p["wo"].to(dt)
+
+
+# --------------------------------------------------------------- decode path
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, C, kvh, hd)  C = window or max_seq
+    v: torch.Tensor
+    length: int      # tokens seen so far (ring for windowed)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  window: Optional[int] = None, dtype=None,
+                  device=None) -> KVCache:
+    c = min(window, max_seq) if window else max_seq
+    shape = (batch, c, cfg.num_kv_heads, cfg.hd)
+    dt = dtype or cfg.dtype
+    return KVCache(torch.zeros(shape, dtype=dt, device=device),
+                   torch.zeros(shape, dtype=dt, device=device), 0)
+
+
+def ring_valid(pos: int, C: int, window: Optional[int] = None,
+               device=None) -> torch.Tensor:
+    """(C,) bool: which ring slots hold a position the token at ``pos``
+    attends to, once it is written at slot ``pos % C`` (the reference's
+    ``abs_pos``/``valid``, ``attention.py:248-254``)."""
+    slot = pos % C
+    idx = torch.arange(C, dtype=torch.int64, device=device)
+    # slot i currently holds absolute position: latest write wins
+    abs_pos = torch.where(idx <= slot, pos - (slot - idx),
+                          pos - C + (idx - slot))
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if window is not None:
+        valid &= (pos - abs_pos) < window
+    return valid
+
+
+def decode_attention(p, x, cache: KVCache, cfg: ModelConfig, *,
+                     window: Optional[int] = None, use_rope=True,
+                     backend: str = "cuda", valid=None, angles=None):
+    """One-token decode: x (B,1,d) + cache -> (out (B,1,d), cache).
+
+    The new token's K and V are written into ``cache`` in place (slot
+    ``length % C``); the returned cache holds the same tensors with
+    ``length + 1``.  ``backend="cuda"`` computes the attention core with K4
+    (``flash_decode``), ``"torch"`` with its plain version.  ``valid``
+    ((B, C) bool, :func:`ring_valid` of this position) and ``angles``
+    (:func:`rope_angles` of it) depend on the position only; a caller that
+    runs many layers at one position (``lm.decode_step``) builds them once
+    and passes them in, else they are built here."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    B = x.shape[0]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = x.dtype
+    C = cache.k.shape[1]
+    pos = cache.length  # position of the new token
+    q = (x @ p["wq"].to(dt)).reshape(B, 1, h, hd)
+    k = (x @ p["wk"].to(dt)).reshape(B, 1, kvh, hd)
+    v = (x @ p["wv"].to(dt)).reshape(B, 1, kvh, hd)
+    if use_rope:
+        if angles is None:
+            angles = rope_angles(torch.full((1,), pos, dtype=torch.int32,
+                                            device=x.device),
+                                 hd, cfg.rope_theta)
+        q, k = _rotate(q, *angles), _rotate(k, *angles)
+    slot = pos % C
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    if valid is None:
+        valid = ring_valid(pos, C, window, x.device).expand(B, C)
+    # the reference reads the cache in the compute dtype, then in float32
+    kk = cache.k if cache.k.dtype == dt else cache.k.to(dt)
+    vv = cache.v if cache.v.dtype == dt else cache.v.to(dt)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+    qs = q.reshape(B, h, hd).float() * scale
+    core = flash_decode if backend == "cuda" else flash_decode_torch
+    o = core(qs, kk, vv, valid)
+    out = o.reshape(B, 1, h * hd).to(dt) @ p["wo"].to(dt)
+    return out, KVCache(cache.k, cache.v, pos + 1)
+
+
+def prefill_kv(p, x, cfg: ModelConfig, max_seq: int,
+               window: Optional[int] = None) -> KVCache:
+    """Build a cache from a full prompt x (B,S,d)."""
+    B, S, _ = x.shape
+    kvh, hd = cfg.num_kv_heads, cfg.hd
+    dt = x.dtype
+    k = (x @ p["wk"].to(dt)).reshape(B, S, kvh, hd)
+    v = (x @ p["wv"].to(dt)).reshape(B, S, kvh, hd)
+    k = rope(k, torch.arange(S, dtype=torch.int32, device=x.device),
+             cfg.rope_theta)
+    cache = init_kv_cache(cfg, B, max_seq, window, dtype=dt, device=x.device)
+    C = cache.k.shape[1]
+    take = min(S, C)
+    # ring invariant: absolute position t lives in slot t mod C
+    slots = (torch.arange(take, device=x.device) + (S - take)) % C
+    cache.k[:, slots] = k[:, S - take:].to(cache.k.dtype)
+    cache.v[:, slots] = v[:, S - take:].to(cache.v.dtype)
+    return KVCache(cache.k, cache.v, S)

@@ -1,0 +1,101 @@
+"""LM serving: prefill and batched greedy or sampled decode.
+
+The counterpart of ``repro/serve/engine.py``'s ``serve_step``,
+``prefill_step`` and ``ServeEngine`` for the dense family.  Every decode
+step runs K4 once per attention layer.  The reference's ``FlushPolicy``
+belongs to the compression services and is ported with them (ROADMAP
+Queue 1 item 8).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models import lm
+from ..models.common import ModelConfig
+from ..models.layers import unembed
+
+__all__ = ["serve_step", "prefill_step", "ServeEngine"]
+
+
+def serve_step(params, cache: lm.DecodeCache, tokens, cfg: ModelConfig):
+    """One decode step: tokens (B,1) -> (logits (B,1,V), cache)."""
+    return lm.decode_step(params, cache, tokens, cfg)
+
+
+def prefill_step(params, tokens, cfg: ModelConfig):
+    """Full-prompt forward -> float32 logits (B,1,V) of the last position."""
+    x, _ = lm.forward_hidden(params, tokens, cfg)
+    return unembed(params["embed"], x[:, -1:, :], cfg)
+
+
+@dataclass
+class ServeEngine:
+    """Static-batch decode loop over ``params`` (``models.lm`` layout) on
+    ``device`` (default the card; the parameters must already be there)."""
+    cfg: ModelConfig
+    params: Any
+    max_seq: int = 2048
+    temperature: float = 0.0
+    device: DeviceLike = None
+    stats: Dict[str, float] = field(default_factory=dict, init=False)
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        where = self.params["embed"]["table"].device
+        if where.type != self.device.type:
+            raise ValueError(f"parameters on {where}, engine on "
+                             f"{self.device}")
+
+    def generate(self, prompts: np.ndarray, num_tokens: int,
+                 seed: int = 0) -> np.ndarray:
+        """prompts (B, P) int -> (B, num_tokens) int32 greedy or sampled
+        tokens.
+
+        Prefill runs through the decode path token by token, as the
+        reference's does.  Greedy decoding takes the first maximal logit,
+        as ``jnp.argmax`` does.  With ``temperature > 0`` tokens are drawn
+        from ``softmax(logits / temperature)`` with a ``torch.Generator``
+        seeded by ``seed``: deterministic for a seed, but not the
+        reference's ``jax.random.categorical`` bits.
+
+        Afterwards ``stats`` holds the host seconds of the prefill (ending
+        in a device sync) and of the decode (ending when the tokens reach
+        the host), and the tokens of each."""
+        prompts = np.asarray(prompts)
+        B, P = prompts.shape
+        t0 = time.perf_counter()
+        cache = lm.init_cache(self.cfg, B, self.max_seq, device=self.device)
+        toks = torch.as_tensor(prompts, dtype=torch.int64).to(self.device)
+        logits = None
+        for t in range(P):
+            logits, cache = serve_step(self.params, cache,
+                                       toks[:, t:t + 1], self.cfg)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        gen = None
+        if self.temperature > 0:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        out = []
+        for _ in range(num_tokens):
+            last = logits[:, -1]
+            if self.temperature > 0:
+                probs = torch.softmax(last / self.temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=gen)
+            else:
+                tok = torch.argmax(last, dim=-1, keepdim=True)
+            out.append(tok)
+            logits, cache = serve_step(self.params, cache, tok, self.cfg)
+        tokens = (torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+                  if out else np.zeros((B, 0), dtype=np.int32))
+        self.stats = {"prefill_s": t1 - t0,
+                      "decode_s": time.perf_counter() - t1,
+                      "prefill_tokens": B * P,
+                      "generated_tokens": B * num_tokens}
+        return tokens

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each held against its plain version
-(decisions and carry equal, cumsum and KS distances bitwise), plus the
-golden corpus through ``backend="cuda"`` and the ``"ops"`` matcher.  Marked
+(decisions and carry equal, cumsum and KS distances bitwise, K4 within
+1e-5), plus the golden corpus through ``backend="cuda"``, the ``"ops"``
+matcher and the LM serve path's decode through K4.  Marked
 ``cuda``; without a card every test skips.
 
 Run on a machine with a card: ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -19,7 +20,9 @@ from repro_torch.core.encoder import init_state  # noqa: E402
 from repro_torch.kernels import dict_match as k3  # noqa: E402
 from repro_torch.kernels import encode_step as k1  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import flash_decode as k4  # noqa: E402
 from repro_torch.kernels import seq_cumsum as k2  # noqa: E402
+from repro_torch.models.attention import ring_valid  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -168,3 +171,115 @@ def test_golden_on_card(dev, name):
         assert blob == f.read()
     assert codec.decode(blob).tobytes() == codec.decode(
         blob, backend="numpy").tobytes()
+
+
+def _k4_case(B, H, Hkv, hd, C, dtype, dev, seed=0):
+    """K4 operands: a query scaled by hd**-0.5, as ``decode_attention``
+    passes it; rows masked as a ring cache at several positions and
+    windows (``ring_valid``), the last row with no valid position."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(B, H, hd)) * hd ** -0.5).to(
+        dev, torch.float32)
+    k = torch.from_numpy(rng.normal(size=(B, C, Hkv, hd))).to(dev, dtype)
+    v = torch.from_numpy(rng.normal(size=(B, C, Hkv, hd))).to(dev, dtype)
+    rows = [ring_valid(int(pos), C, window, dev)
+            for pos, window in zip(rng.integers(0, 3 * C, B),
+                                   [None, 3, C // 2 + 1] * B)]
+    valid = torch.stack(rows[:B])
+    valid[-1] = False
+    return q, k, v, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("B,H,Hkv,hd,C", [
+    (2, 8, 2, 16, 1024), (1, 4, 4, 32, 512), (3, 16, 8, 64, 2048),
+    (2, 6, 6, 64, 512),                       # the JAX test's shapes
+    (3, 8, 8, 128, 700), (3, 32, 8, 128, 2048), (3, 32, 2, 64, 33),
+    (2, 4, 4, 64, 1),                         # G in {1, 4, 16}, any C
+])
+def test_flash_decode_matches_plain(dev, B, H, Hkv, hd, C, dtype):
+    q, k, v, valid = _k4_case(B, H, Hkv, hd, C, dtype, dev, seed=C + hd)
+    before = k4.launches
+    got = k4.flash_decode(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    want = k4.flash_decode_torch(q, k, v, valid)
+    assert float((got - want).abs().max()) <= 1e-5
+    mean_v = v[-1].float().mean(0).repeat_interleave(H // Hkv, dim=0)
+    assert float((got[-1] - mean_v).abs().max()) <= 1e-5
+    # a mask broadcast over the batch is read in place
+    one = valid[:1].expand(B, C)
+    assert float((k4.flash_decode(q, k, v, one)
+                  - k4.flash_decode_torch(q, k, v, one)).abs().max()) <= 1e-5
+
+
+def test_flash_decode_rejects_bad_operands(dev):
+    q, k, v, valid = _k4_case(2, 8, 2, 16, 64, torch.bfloat16, dev)
+    before = k4.launches
+    bad = [(q.double(), k, v, valid), (q, k, v.float(), valid),
+           (q[..., :12].contiguous(), k[..., :12].contiguous(),
+            v[..., :12].contiguous(), valid),         # hd not a multiple of 8
+           (q, k.transpose(1, 2).contiguous().transpose(1, 2), v, valid),
+           (q, k, v, valid.int()), (q[:, :7], k, v, valid),
+           (q, k, v, valid.cpu())]
+    for args in bad:
+        with pytest.raises(KernelShapeError):
+            k4.flash_decode(*args)
+    big = torch.zeros((1, 64, 1, 2048), dtype=torch.float32, device=dev)
+    with pytest.raises(KernelShapeError, match="shared memory"):
+        k4.flash_decode(torch.zeros((1, 64, 2048), device=dev), big, big,
+                        torch.ones((1, 64), dtype=torch.bool, device=dev))
+    assert k4.launches == before
+
+
+def test_serve_decode_through_k4(dev):
+    """The SMOKE granite decode on the card: one K4 launch per layer and
+    step, logits close to the plain attention core's (bf16 rounding of the
+    attention output before ``wo``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine
+    cfg = get_config("granite_3_8b", smoke=True)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 10))).to(dev)
+    logits = {}
+    for backend in ("cuda", "torch"):
+        cache = lm.init_cache(cfg, 4, 16, device=dev)
+        k4.launches = 0
+        out = []
+        for t in range(toks.shape[1]):
+            lg, cache = lm.decode_step(params, cache, toks[:, t:t + 1], cfg,
+                                       backend=backend)
+            out.append(lg)
+        logits[backend] = torch.cat(out, dim=1)
+        assert k4.launches == (cfg.num_layers * toks.shape[1]
+                               if backend == "cuda" else 0)
+    assert float((logits["cuda"] - logits["torch"]).abs().max()) < 0.05
+    eng = ServeEngine(cfg, params, max_seq=32)
+    out = eng.generate(toks[:, :4].cpu().numpy(), 6)
+    assert out.shape == (4, 6)
+    np.testing.assert_array_equal(eng.generate(toks[:, :4].cpu().numpy(), 6),
+                                  out)
+
+
+def test_unembed_is_full_float32_under_tf32(dev):
+    """The float32 unembedding ignores a caller's TF32 setting on the card
+    (TF32 would miss a float64 product by ~1e-3 here, float32 by ~1e-7)."""
+    from types import SimpleNamespace
+    from repro_torch.models.layers import unembed
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(8, 1, 4096))).to(dev, torch.float32)
+    w = torch.from_numpy(rng.normal(size=(512, 4096)) / 64).to(
+        dev, torch.float32)
+    want = (x.double() @ w.double().T).float()
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = unembed({"table": w}, x, SimpleNamespace(tie_embeddings=True))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert float((got - want).abs().max()) < 1e-5

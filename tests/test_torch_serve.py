@@ -1,0 +1,290 @@
+"""The port's LM serve path (``repro_torch.models``, ``repro_torch.serve``)
+against the reference package at ``SMOKE`` size, on the dense configs it
+serves: granite-3-8b, glm4-9b (one kv head at SMOKE size) and stablelm-12b
+(untied unembedding).  The reference's parameters are carried across with
+``models.convert.params_from_jax``.
+
+Tolerances.  In a float32 config (``cfg.replace(dtype=float32)``, as
+``tests/test_serve_and_data.py`` runs the recurrent archs) the port must
+agree within 1e-4 absolute: both sides compute the same float32 products
+and differ only in the order of their sums and in the last ulp of
+exp/cos/sin.  In the configs' own bfloat16 the two frameworks round
+activations at other places, so the reference test's own contract holds
+(allclose atol 0.75 / rtol 0.1, argmax agreement above 0.9).
+On CPU tensors K4's wrapper runs its plain version; the kernel is held
+against it on the card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.models.layers import unembed as jax_unembed  # noqa: E402
+from repro.serve import ServeEngine as JaxEngine  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_decode as k4  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.models.layers import unembed  # noqa: E402
+from repro_torch.serve import ServeEngine, prefill_step, serve_step  # noqa: E402
+
+ARCHS = ["granite_3_8b", "glm4_9b", "stablelm_12b"]
+TOL = 1e-4
+STEPS = 12
+
+
+def _pair(arch, f32=True, **changes):
+    """(jax cfg, jax params, port cfg, port params on the CPU)."""
+    jcfg = jax_config(arch, smoke=True).replace(**changes)
+    tcfg = get_config(arch, smoke=True).replace(**changes)
+    if f32:
+        jcfg, tcfg = jcfg.replace(dtype=jnp.float32), \
+            tcfg.replace(dtype=torch.float32)
+    jparams = jlm.init_params(jax.random.key(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+def _tokens(cfg, B=2, S=STEPS, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _decode_jax(jcfg, jparams, toks, max_seq):
+    cache = jlm.init_cache(jcfg, toks.shape[0], max_seq=max_seq)
+    step = jax.jit(lambda p, c, t: jlm.decode_step(p, c, t, jcfg))
+    outs = []
+    for t in range(toks.shape[1]):
+        lg, cache = step(jparams, cache, jnp.asarray(toks[:, t:t + 1]))
+        outs.append(np.asarray(lg, dtype=np.float32))
+    return np.concatenate(outs, axis=1)
+
+
+def _decode_port(tcfg, tparams, toks, max_seq):
+    cache = lm.init_cache(tcfg, toks.shape[0], max_seq, device="cpu")
+    tt = torch.from_numpy(toks).long()
+    outs = []
+    for t in range(toks.shape[1]):
+        lg, cache = serve_step(tparams, cache, tt[:, t:t + 1], tcfg)
+        outs.append(lg.float().numpy())
+    assert all(c.length == toks.shape[1] for c in cache.layers)
+    return np.concatenate(outs, axis=1)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_step_matches_jax_f32(arch):
+    jcfg, jparams, tcfg, tparams = _pair(arch)
+    toks = _tokens(tcfg)
+    want = _decode_jax(jcfg, jparams, toks, max_seq=STEPS)
+    before = k4.launches
+    got = _decode_port(tcfg, tparams, toks, STEPS)
+    assert got.shape == (2, STEPS, tcfg.vocab_size)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+    assert k4.launches == before  # CPU tensors: the plain version
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_jax_f32(arch):
+    jcfg, jparams, tcfg, tparams = _pair(arch)
+    toks = _tokens(tcfg, seed=1)
+    x, _ = jlm.forward_hidden(jparams, jnp.asarray(toks), jcfg)
+    want = np.asarray(jax_unembed(jparams["embed"], x, jcfg))
+    tt = torch.from_numpy(toks).long()
+    h, aux = lm.forward_hidden(tparams, tt, tcfg)
+    got = unembed(tparams["embed"], h, tcfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(prefill_step(tparams, tt, tcfg).numpy(),
+                               want[:, -1:], rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_bf16_meets_reference_contract(arch):
+    """bfloat16 decode and forward logits against the reference's, with
+    ``tests/test_serve_and_data.py``'s decode-vs-forward contract."""
+    jcfg, jparams, tcfg, tparams = _pair(arch, f32=False)
+    assert tcfg.dtype == torch.bfloat16
+    assert tparams["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
+    assert tparams["embed"]["table"].dtype == torch.float32
+    toks = _tokens(tcfg, seed=2)
+    x, _ = jlm.forward_hidden(jparams, jnp.asarray(toks), jcfg)
+    fwd_want = np.asarray(jax_unembed(jparams["embed"], x, jcfg))
+    h, _ = lm.forward_hidden(tparams, torch.from_numpy(toks).long(), tcfg)
+    fwd_got = unembed(tparams["embed"], h, tcfg).numpy()
+    dec_want = _decode_jax(jcfg, jparams, toks, max_seq=STEPS)
+    dec_got = _decode_port(tcfg, tparams, toks, STEPS)
+    for got, want in ((fwd_got, fwd_want), (dec_got, dec_want),
+                      (dec_got, fwd_got)):
+        np.testing.assert_allclose(got, want, atol=0.75, rtol=0.1)
+        agree = np.mean(np.argmax(got, -1) == np.argmax(want, -1))
+        assert agree > 0.9, agree
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_greedy_matches_jax_f32(arch):
+    jcfg, jparams, tcfg, tparams = _pair(arch)
+    prompts = _tokens(tcfg, B=3, S=5, seed=3)
+    want = JaxEngine(jcfg, jparams, max_seq=32).generate(prompts, 8)
+    eng = ServeEngine(tcfg, tparams, max_seq=32, device="cpu")
+    got = eng.generate(prompts, 8)
+    assert got.dtype == np.int32 and got.shape == (3, 8)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(eng.generate(prompts, 8), got)
+    assert eng.stats["prefill_tokens"] == 15
+    assert eng.stats["generated_tokens"] == 24
+    assert eng.stats["prefill_s"] > 0 and eng.stats["decode_s"] > 0
+
+
+@pytest.mark.parametrize("changes", [
+    dict(),                                    # ring wraps: max_seq < steps
+    dict(sliding_window=4),                    # windowed ring of 4 slots
+    dict(local_global_ratio=1, local_window=3),  # local + global stages
+], ids=["ring", "sliding_window", "local_global"])
+def test_ring_and_windows_match_jax_f32(changes):
+    jcfg, jparams, tcfg, tparams = _pair("granite_3_8b", **changes)
+    toks = _tokens(tcfg, seed=4)
+    want = _decode_jax(jcfg, jparams, toks, max_seq=5)
+    got = _decode_port(tcfg, tparams, toks, 5)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+    # the forward path with the same windows
+    x, _ = jlm.forward_hidden(jparams, jnp.asarray(toks), jcfg)
+    h, _ = lm.forward_hidden(tparams, torch.from_numpy(toks).long(), tcfg)
+    np.testing.assert_allclose(unembed(tparams["embed"], h, tcfg).numpy(),
+                               np.asarray(jax_unembed(jparams["embed"], x,
+                                                      jcfg)),
+                               rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_decode_attention_matches_jax_layer(window):
+    """One attention layer, step by step over a ring of 4 slots, and the
+    cache it leaves behind."""
+    jcfg = jax_config("granite_3_8b", smoke=True).replace(dtype=jnp.float32)
+    tcfg = get_config("granite_3_8b", smoke=True).replace(
+        dtype=torch.float32)
+    jp = jattn.init_attention(jax.random.key(1), jcfg)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    xs = np.random.default_rng(5).normal(
+        size=(9, 2, 1, jcfg.d_model)).astype(np.float32)
+    jc = jattn.init_kv_cache(jcfg, 2, 4, window)
+    tc = tattn.init_kv_cache(tcfg, 2, 4, window, device="cpu")
+    for x in xs:
+        jo, jc = jattn.decode_attention(jp, jnp.asarray(x), jc, jcfg,
+                                        window=window)
+        to, tc = tattn.decode_attention(tp, torch.from_numpy(x), tc, tcfg,
+                                        window=window)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0,
+                                   atol=TOL)
+    assert tc.length == int(jc.length) == len(xs)
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), rtol=0,
+                               atol=TOL)
+    np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), rtol=0,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("S,max_seq,window", [(6, 16, None), (9, 4, None),
+                                              (9, 16, 4)])
+def test_prefill_kv_matches_jax(S, max_seq, window):
+    jcfg = jax_config("granite_3_8b", smoke=True).replace(dtype=jnp.float32)
+    tcfg = get_config("granite_3_8b", smoke=True).replace(
+        dtype=torch.float32)
+    jp = jattn.init_attention(jax.random.key(2), jcfg)
+    tp = {k: torch.from_numpy(np.array(v)) for k, v in jp.items()}
+    x = np.random.default_rng(6).normal(
+        size=(2, S, jcfg.d_model)).astype(np.float32)
+    jc = jattn.prefill_kv(jp, jnp.asarray(x), jcfg, max_seq, window)
+    tc = tattn.prefill_kv(tp, torch.from_numpy(x), tcfg, max_seq, window)
+    assert tc.length == int(jc.length) == S
+    np.testing.assert_allclose(tc.k.numpy(), np.asarray(jc.k), rtol=0,
+                               atol=TOL)
+    np.testing.assert_allclose(tc.v.numpy(), np.asarray(jc.v), rtol=0,
+                               atol=TOL)
+
+
+def test_sampled_generation_is_seeded_and_in_range():
+    """``temperature > 0`` draws from a seeded ``torch.Generator``: the same
+    seed gives the same tokens (not ``jax.random.categorical``'s bits)."""
+    _, _, tcfg, tparams = _pair("granite_3_8b", f32=False)
+    eng = ServeEngine(tcfg, tparams, max_seq=64, temperature=1.0,
+                      device="cpu")
+    prompts = _tokens(tcfg, B=4, S=4, seed=7)
+    a = eng.generate(prompts, 16, seed=3)
+    assert a.shape == (4, 16) and a.min() >= 0 and a.max() < tcfg.vocab_size
+    np.testing.assert_array_equal(eng.generate(prompts, 16, seed=3), a)
+    assert not np.array_equal(eng.generate(prompts, 16, seed=4), a)
+
+
+def test_param_count_matches_jax():
+    for arch in ARCHS:
+        assert get_config(arch).param_count() \
+            == jax_config(arch).param_count()
+    assert get_config("granite-3-8b").param_count() == 8_170_848_256
+
+
+def test_unported_paths_raise():
+    with pytest.raises(NotImplementedError, match="item 12"):
+        get_config("mixtral-8x22b")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        lm.stage_plan(get_config("granite_3_8b", smoke=True).replace(
+            family="moe"))
+    _, _, tcfg, tparams = _pair("granite_3_8b", sliding_window=2,
+                                attn_chunk=4)
+    with pytest.raises(NotImplementedError, match="_flash_banded"):
+        lm.forward_hidden(tparams, torch.zeros((1, 16), dtype=torch.long),
+                          tcfg)
+    with pytest.raises(ValueError, match="backend"):
+        lm.decode_step(tparams, lm.init_cache(tcfg, 1, 8, device="cpu"),
+                       torch.zeros((1, 1), dtype=torch.long), tcfg,
+                       backend="pallas")
+
+
+def test_unembed_keeps_the_callers_tf32_setting():
+    _, _, tcfg, tparams = _pair("stablelm_12b")
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(2, 1, tcfg.d_model)).astype(np.float32))
+    before = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for setting in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = setting
+            got = unembed(tparams["embed"], x, tcfg)
+            assert torch.backends.cuda.matmul.allow_tf32 is setting
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(
+                got, x @ tparams["embed"]["unembed"], rtol=0, atol=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card, the default device is an error, never the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = get_config("granite_3_8b", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_params(cfg)
+    params = lm.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm.init_cache(cfg, 1, 8)
+
+
+def test_seeded_init_and_cli_on_cpu(capsys):
+    cfg = get_config("glm4-9b", smoke=True)
+    a = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    wq = a["layers"][1]["attn"]["wq"]
+    assert torch.equal(wq, b["layers"][1]["attn"]["wq"])
+    assert wq.dtype == torch.bfloat16 and wq.shape == (64, 4 * 16)
+    assert float(wq.float().abs().max()) <= 2 / 64 ** 0.5
+    serve_cli.main(["--arch", "glm4-9b", "--smoke", "--device", "cpu",
+                    "--batch", "2", "--prompt-len", "3", "--gen", "4"])
+    assert "generated (2, 4)" in capsys.readouterr().out
