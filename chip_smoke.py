@@ -16,9 +16,12 @@ Phases, each fatal on failure (no failure is caught):
 3. K1      -- the fused encode scan against its plain version on the card:
               D in {1, 9, 255}, n in {7, 32, 111}, the min/max and KS
               ablations, a ragged block mask, plus one dictionary too large
-              for shared memory; and the error-bounded mode (std and
-              cumulative) at D=255, n=111 (sorted and raw dictionaries fill
-              shared memory to its edge) and at n=256 (global memory).
+              for shared memory, traffic that turns the dictionary over,
+              and blocks with ties, -0.0/+0.0, +-inf and NaN tails
+              (carries compared bit for bit); and the error-bounded mode
+              (std and cumulative) at D=255, n=111 (sorted and raw
+              dictionaries fill shared memory to its edge) and at n=256
+              (global memory).
               Decisions and final carry must be equal.
 4. K2      -- the sequential cumsum against its plain version and against
               ``np.cumsum`` of the host copy, bitwise, in f64/f32/f16 with a
@@ -62,7 +65,9 @@ Phases, each fatal on failure (no failure is caught):
               2048}, G in {1, 4, 16}, hd in {64, 128}, f32/bf16/f16 caches,
               rows masked by ``decode_attention``'s ring formula (plain,
               windowed, wrapped) and one row with no valid position (the
-              mean of V).
+              mean of V); shapes split along C with a ragged last split,
+              G=6 in head groups and C=32,768 at B=1.  Prints the split
+              counts.
 12. serve  -- granite-3-8b at full width (weights from a seeded
               ``torch.Generator``) through ``ServeEngine.generate``: 8
               numpy-seeded prompts of 256 tokens, 64 greedy tokens,
@@ -75,15 +80,17 @@ Phases, each fatal on failure (no failure is caught):
               decode-vs-forward contract (atol 0.75, rtol 0.1).  Prints
               weight and peak GB, prefill and decode tokens/s, ms per
               decode step, a ``torch.profiler`` trace of 16 decode steps
-              (device operations a step), and the host's milliseconds to
-              issue those steps unprofiled beside their wall time.
+              (device operations a step; K4's and its combine kernel's
+              device ms), and the host's milliseconds to issue those steps
+              unprofiled beside their wall time.
 13. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
               with the error bound, at the ANG_delta feed shape; K3 at the
               MAG and ANG step shapes; K4 at the serve shape and at a 32k
-              context; prints the ``{"kernels": [...]}`` line.
+              context (with its split count); K1 also in microseconds a
+              block step; prints the ``{"kernels": [...]}`` line.
 
 Prints the card line (``nvidia-smi --query-gpu=name,power.limit``) and, last,
 ``{"ok": true, "device": {...}}``.
@@ -259,20 +266,60 @@ def phase_build():
     say(f"[build] all kernels in {wall:.2f} s (parallel nvcc)")
 
 
+def same_bits(torch, a, b):
+    """``torch.equal``, with float32 tensors compared by their bits (a NaN
+    row in a carry is equal to itself)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def special_blocks(C, nb, n, seed):
+    """Mixture blocks with ties, -0.0/+0.0, +-inf and NaN tails: NaNs sort
+    last and count 0 in the KS counts, an inf extreme fails the eq. 3
+    gate."""
+    rng = np.random.default_rng(seed)
+    x = np.stack([mixture(nb, n, seed=seed + c) for c in range(C)])
+    x = np.round(x, 1)                      # ties within and across blocks
+    x[rng.random(x.shape) < 0.05] = 0.0
+    x[rng.random(x.shape) < 0.05] = -0.0
+    kind = rng.integers(0, 4, (C, nb))
+    k = max(1, n // 5)
+    x[kind == 1, :k] = np.nan
+    x[kind == 2, 0] = np.inf
+    x[kind == 3, -1] = -np.inf
+    return x
+
+
 def phase_k1(torch, dev):
     from repro_torch.core.encoder import init_state
     from repro_torch.kernels import encode_step as k1
-    cases = [(D, n, mm, ks) for D in (1, 9, 255) for n in (7, 32, 111)
+    cases = [(D, n, mm, ks, "mixture") for D in (1, 9, 255)
+             for n in (7, 32, 111)
              for mm, ks in ((True, True), (False, True), (True, False))]
-    cases.append((255, 256, True, True))  # dictionary in global memory
+    cases.append((255, 256, True, True, "mixture"))  # global memory
+    # a dictionary that turns over; NaN/+-inf blocks (without the gate the
+    # KS sees them)
+    cases += [(255, 32, True, True, "turnover"),
+              (9, 111, True, True, "turnover")]
+    cases += [(D, n, mm, True, "special") for D, n in ((9, 7), (255, 32),
+                                                        (255, 111))
+              for mm in (True, False)]
     C, nb = 3, 320
     seen = np.zeros(3, dtype=np.int64)  # hits, misses, overwrites
-    for i, (D, n, mm, ks) in enumerate(cases):
-        blocks = np.stack([mixture(nb, n, seed=100 * i + c) for c in range(C)])
+    for i, (D, n, mm, ks, traffic) in enumerate(cases):
+        if traffic == "mixture":
+            blocks = np.stack([mixture(nb, n, seed=100 * i + c)
+                               for c in range(C)])
+        elif traffic == "turnover":
+            blocks = turnover(C, 4 * nb, n, seed=i)
+        else:
+            blocks = special_blocks(C, nb, n, seed=100 * i)
         xs = torch.sort(torch.from_numpy(blocks).to(dev, torch.float32),
                         dim=-1).values
-        valid = torch.ones((C, nb), dtype=torch.bool, device=dev)
-        valid[1, nb // 2:] = False
+        nb_i = xs.shape[1]
+        valid = torch.ones((C, nb_i), dtype=torch.bool, device=dev)
+        valid[1, nb_i // 2:] = False
         valid[2, ::5] = False
         st = init_state(D, n, channels=C, device=dev)
         kw = dict(d_crit=(int(0.4 * n) + 0.5) / n, rel_tol=0.5,
@@ -280,16 +327,18 @@ def phase_k1(torch, dev):
         got, gst = k1.encode_scan(xs, valid, st, **kw)
         torch.cuda.synchronize()
         want, wst = k1.encode_scan_torch(xs, valid, st, **kw)
+        what = f"D={D} n={n} mm={mm} ks={ks} {traffic}"
         for a, b, name in zip(got, want, ("is_hit", "slot", "overwrite")):
-            check(torch.equal(a, b), f"K1 {name} D={D} n={n} mm={mm} ks={ks}")
+            check(torch.equal(a, b), f"K1 {name} {what}")
         for a, b, name in zip(gst, wst, gst._fields):
-            check(torch.equal(a, b), f"K1 carry {name} D={D} n={n}")
+            check(same_bits(torch, a, b), f"K1 carry {name} {what}")
         check(not got[0][~valid].any(), "K1 masked blocks decide no hit")
         h = got[0][valid]
         seen += [int(h.sum()), int((~h).sum()), int(got[2].sum())]
     check(np.all(seen > 0), f"K1 ring saw hits/misses/overwrites {seen}")
-    say(f"[K1] {len(cases)} cases equal to the plain version on the card "
-        f"(hits {seen[0]}, misses {seen[1]}, overwrites {seen[2]})")
+    say(f"[K1] {len(cases)} cases equal to the plain version on the card, "
+        f"turnover and NaN/+-inf blocks included (hits {seen[0]}, misses "
+        f"{seen[1]}, overwrites {seen[2]})")
     phase_k1_bound(torch, dev)
 
 
@@ -464,10 +513,11 @@ def turnover(C, nb, n, seed):
     return rng.normal(level, 1.0, (C, nb, n))
 
 
-def device_profile(torch, fn):
+def device_profile(torch, fn, names=()):
     """Run ``fn`` under ``torch.profiler``: wall seconds (host clock, ending
     in a sync), the union of the card's activity intervals (kernels and
-    copies), and the summed device time of the busiest names."""
+    copies), the summed device time of the busiest names and of the names
+    that hold each of ``names``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -489,10 +539,14 @@ def device_profile(torch, fn):
             busy_us += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_s": wall, "device_events": len(spans),
-            "device_busy_s": busy_us / 1e6,
-            "busy_share": busy_us / 1e6 / wall if spans else None,
-            "device_ms_by_name": {k[:80]: v for k, v in top}}
+    out = {"wall_s": wall, "device_events": len(spans),
+           "device_busy_s": busy_us / 1e6,
+           "busy_share": busy_us / 1e6 / wall if spans else None,
+           "device_ms_by_name": {k[:80]: v for k, v in top}}
+    if names:
+        out["device_ms_of"] = {m: sum(v for k, v in by_name.items() if m in k)
+                               for m in names}
+    return out
 
 
 def encode_session(torch, codec, x, chunks=CHUNKS):
@@ -911,6 +965,7 @@ def time_k1(torch, dev, codec, pay, error_bound=None):
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+        "us_per_block_step": ms / nb * 1e3,
         "shape": {"C": C, "nb": nb, "n": n, "D": D},
         "valid_rows": rows, "gated_rows": gated, "ks_rows": ks_rows,
         "bytes": nbytes, "ops": ops,
@@ -968,11 +1023,22 @@ def phase_k4(torch, dev):
     shapes += [(B, Hkv * G, Hkv, hd, C) for G in (1, 4, 16)
                for hd in (64, 128) for B, Hkv, C in ((3, 8, 700), (4, 2, 33))]
     shapes += [(2, 4, 4, 64, 1), (8, 32, 8, 128, 2048)]
+    # split along C: a ragged last split (fewer tiles, a ragged last tile),
+    # G = 6 in head groups, and C = 32,768 at B = 1
+    shapes += [(2, 8, 2, 64, 64 * 37 + 9), (3, 48, 8, 128, 1000),
+               (1, 32, 8, 128, 32768)]
     worst = 0.0
     n = 0
+    splits_seen, ragged = {}, 0
     for i, shape in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16, torch.float16):
             q, k, v, valid = k4_case(torch, dev, *shape, dtype, seed=i)
+            B, H, Hkv, hd, C = shape
+            splits = k4._splits(dev, dtype, B, C, Hkv, H // Hkv, hd)
+            tiles = -(-C // 64)
+            tps = -(-tiles // splits)
+            splits_seen[str(shape)] = splits
+            ragged += splits > 1 and (tiles % tps or C % 64)
             got = k4.flash_decode(q, k, v, valid)
             torch.cuda.synchronize()
             err = float((got - k4.flash_decode_torch(q, k, v, valid))
@@ -980,15 +1046,23 @@ def phase_k4(torch, dev):
             G = shape[1] // shape[2]
             mean_v = v[-1].float().mean(0).repeat_interleave(G, dim=0)
             err_mean = float((got[-1] - mean_v).abs().max())
+            if B == 1:  # its one row is all masked: also every position valid
+                full = torch.ones_like(valid)
+                err = max(err, float((k4.flash_decode(q, k, v, full)
+                                      - k4.flash_decode_torch(q, k, v, full))
+                                     .abs().max()))
             check(err <= K4_TOL and err_mean <= K4_TOL,
                   f"K4 {shape} {dtype}: {err} / all-masked row {err_mean} "
                   f"<= {K4_TOL}")
             worst = max(worst, err, err_mean)
             n += 1
+    check(ragged > 0 and splits_seen[str(shapes[-1])] > 1,
+          f"K4 cases split C with a ragged last split ({splits_seen})")
     say(f"[K4] {n} cases within {K4_TOL} of the plain version on the card "
-        f"(largest difference {worst}; JAX test shapes, C in 1/33/700/2048, "
-        f"G in 1/4/16, hd in 64/128, f32/bf16/f16 caches, ring and window "
-        f"masks, an all-masked row == mean of V)")
+        f"(largest difference {worst}; JAX test shapes, C in "
+        f"1/33/700/1000/2048/2377/32768, G in 1/4/6/16, hd in 64/128, "
+        f"f32/bf16/f16 caches, ring and window masks, an all-masked row == "
+        f"mean of V); splits {json.dumps(splits_seen)}")
 
 
 def tree_bytes(tree):
@@ -1095,7 +1169,8 @@ def phase_serve(torch, dev, card):
         c = cache
         for _ in range(SERVE_PROFILED):
             _, c = lm.decode_step(params, c, tok, cfg)
-    prof = device_profile(torch, steps)
+    prof = device_profile(torch, steps, names=("flash_decode_split",
+                                              "flash_decode_combine"))
     # the same steps unprofiled: the host's seconds to issue them, and to
     # their end on the card; issue close to wall means the host sets the
     # pace (the card drains its queue as soon as the host stops)
@@ -1166,6 +1241,7 @@ def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "max_abs_err": err, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "splits": k4._splits(q.device, k.dtype, B, C, Hkv, G, hd),
         "shape": {"B": B, "C": C, "Hkv": Hkv, "G": G, "hd": hd,
                   "cache": "bfloat16"},
         "bytes": nbytes, "ops": ops,

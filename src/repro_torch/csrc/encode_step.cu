@@ -8,37 +8,48 @@
 // dictionary row, the hit/slot/overwrite decision, and the FIFO insert of
 // the sorted block (and its raw row) at count % D.
 //
-// Design.  Blocks of one channel depend on each other through the
-// dictionary; channels do not.  The TPU walked dictionary tiles as a
-// sequential grid and carried the arg-min in a revisited output block.
-// Hopper runs CTAs in no order, so this kernel is scan-resident instead: one
-// CTA per channel loops over the channel's blocks, and each thread owns one
-// dictionary row (D <= 255 < 256 threads).  In each step the threads compute
-// their row's gates and KS distance, a ballot per warp plus a pass over the
-// 8 warp minima gives the lowest passing row, thread 0 writes the decision,
-// and the CTA inserts the row on a miss.  __syncthreads separates the phases.
+// Bound.  Blocks of one channel depend on each other through the
+// dictionary; channels do not.  So the kernel is scan-resident: one CTA per
+// channel walks the channel's blocks, and the feed's time is the length of
+// one block step times the blocks of a channel, far above what its bytes or
+// operations need.  The step's latency is what the design shortens.
+// Measured on the previous design (one thread's serial merge walk per KS
+// row, four barriers), the KS took 96 % of a step's clock on the paper's
+// MAG traffic.
+//
+// Step.  Thread t owns dictionary row t (D <= 255 < 256 threads) for the
+// gates; the KS is spread over warps.
+//   * Prefetch: while step b runs, cp.async copies block b+1's sorted
+//     candidate (and raw row) into the other of two shared buffers; the
+//     block mask comes a batch of kBatch steps ahead, and the decisions are
+//     staged in shared memory and stored a batch at a time, coalesced.
+//   * Gate: each thread checks its row (eq. 3 and, with the bound, the error
+//     gate: one thread walks the raw row left to right, so the running sum
+//     adds in the contract's order); a ballot per warp gives the mask of
+//     passing rows.
+//   * KS: warp w takes the w-th passing row in ascending row order, its
+//     lanes take the candidate's points, and each count (#{d <= x_j},
+//     #{x <= d_j}, #{d <= d_j}) is a binary search with the <= predicate
+//     over a sorted array: O(log n) per point where the merge walk took O(n)
+//     steps of one thread.  Both arrays are sorted with NaNs last, so the
+//     predicate holds on a prefix and each count is the integer the
+//     broadcast compares give; a NaN point counts 0, as there.  The gaps
+//     come from ks_arith.cuh and a shuffle max ends the row, so every KS
+//     value is the same float.  The first pass in warp order is the lowest
+//     passing row; when more rows pass the gate than there are warps,
+//     further rounds take the next rows in order until one passes.
+//   * Decision: every thread folds the warps' results (eight shared words)
+//     and keeps the count in a register, so no thread decides alone behind
+//     a barrier.  Barriers per step: the candidate's arrival, the gate's
+//     mask, and one per KS round.
 // The dictionary -- and in the error-bounded mode its raw rows -- lives in
 // shared memory when it fits (D*n*4 bytes each: 113 KB at the paper's D=255,
-// n=111, both together 226 KB of the 227 KB a CTA can opt in to), else in
-// the carry-out buffers in global memory.
+// n=111, both together 226 KB of the 227 KB a CTA can opt in to, beside the
+// step's 4.8 KB), else in the carry-out buffers in global memory.
 //
-// Error gate.  A thread walks its raw row once: each difference x_k - r_k
-// (or the running sum of them, added left to right) must be within the
-// bound; a NaN fails, as a NaN maximum does.  As in the TPU kernel, a row
-// the gate demotes skips the KS.
-//
-// KS counts.  Both samples are sorted, so each row's ECDF counts come from
-// one merge walk (O(n) instead of the TPU kernel's O(n^2) broadcast
-// compares).  The counts are integers and equal the broadcast counts; NaNs,
-// which sort last and compare false, count 0 as they do there.
-//
-// Time.  The work per step is small (the gates for every valid row, the KS
-// merge of the few rows that pass them), but the steps of a channel are a
-// serial chain: each waits for the previous insert, and within a step the
-// KS merge of one row runs on one thread between four barriers.  That chain,
-// not bytes or operations, sets the kernel's time.  With 64 channels only 64
-// of the 132 SMs have work; this simple version leaves that, and the
-// per-step barriers, to later work.
+// Chan.  The per-channel parameters (points nf, inv_n, d_crit, the error
+// gate's eb and err_cum) sit in one Chan value, filled from the launch's
+// scalars; the mixed-mode scan's chan operand fills it per channel.
 //
 // Arithmetic matches the plain version op for op (ks_arith.cuh: every
 // product and difference rounded on its own, the library built with
@@ -54,51 +65,93 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSentinel = 1 << 30;
+constexpr int kBatch = 128;  // steps whose masks and decisions move together
 
-__device__ __forceinline__ float ks_row(const float* __restrict__ d,
-                                        const float* __restrict__ x, int n,
-                                        float inv_n) {
-  // d1: at the candidate's jump points, |(j+1)/n - #{d <= x_j}/n|
-  float d1 = 0.0f;
-  int p = 0;
-  for (int j = 0; j < n; ++j) {
-    const float xj = x[j];
-    int cnt = 0;
-    if (!isnan(xj)) {
-      while (p < n && d[p] <= xj) ++p;
-      cnt = p;
+struct Chan {
+  int nf;        // points of a block (the row stride is n)
+  float inv_n;   // f32(1 / nf)
+  float d_crit;  // critical KS distance
+  int eb;        // error gate on
+  int err_cum;   // on the running sum of differences
+};
+
+// KS distance of the sorted candidate x against the sorted row d, by a warp:
+// lane l takes the points j = l, l + 32, ...  At point j the three counts
+// #{d <= x_j}, #{x <= d_j} and #{d <= d_j} are binary searches with the <=
+// predicate, stepped together so their loads are in flight at once: from
+// the largest power of two top <= n down to 1, a count moves up by the step
+// when the element at count + step - 1 still holds the predicate.  Both
+// arrays are sorted with NaNs last, so the predicate holds on a prefix and
+// the search ends on its length.
+__device__ __forceinline__ float ks_warp(const float* __restrict__ d,
+                                         const float* __restrict__ x, int n, int top,
+                                         float inv_n, int lane) {
+  float m = 0.0f;
+  for (int j = lane; j < n; j += 32) {
+    const float xj = x[j], dj = d[j];
+    int cnt_d = 0, cnt_x = 0, rank_d = 0;
+    for (int s = top; s > 0; s >>= 1) {
+      const int a = cnt_d + s, b = cnt_x + s, r = rank_d + s;
+      if (a <= n && d[a - 1] <= xj) cnt_d = a;
+      if (b <= n && x[b - 1] <= dj) cnt_x = b;
+      if (r <= n && d[r - 1] <= dj) rank_d = r;
     }
-    d1 = fmaxf(d1, gap_at_candidate(j, cnt, inv_n));
+    m = fmaxf(m, fmaxf(gap_at_candidate(j, cnt_d, inv_n), gap_at_row(cnt_x, rank_d, inv_n)));
   }
-  // d2: at the row's own points, |#{x <= d_k}/n - #{d <= d_k}/n|
-  float d2 = 0.0f;
-  int q = 0, r = 0;
-  for (int k = 0; k < n; ++k) {
-    const float dk = d[k];
-    int cx = 0, rd = 0;
-    if (!isnan(dk)) {
-      while (q < n && x[q] <= dk) ++q;
-      while (r < n && d[r] <= dk) ++r;
-      cx = q;
-      rd = r;
-    }
-    d2 = fmaxf(d2, gap_at_row(cx, rd, inv_n));
-  }
-  return fmaxf(d1, d2);
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
 }
 
 // Every |x_k - r_k| (or, cumulative, every |sum_{i<=k} (x_i - r_i)|) within
-// the bound; a NaN fails.
+// the bound; a NaN fails.  The sum adds left to right; four differences are
+// loaded at a time, so their loads are in flight together.
 __device__ __forceinline__ bool within_bound(const float* __restrict__ r,
                                              const float* __restrict__ x, int n,
                                              float bound, bool cumulative) {
   float acc = 0.0f;
-  for (int k = 0; k < n; ++k) {
+  int k = 0;
+  for (; k + 4 <= n; k += 4) {
+    float d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) d[u] = __fsub_rn(x[k + u], r[k + u]);
+    bool ok = true;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      acc = cumulative ? __fadd_rn(acc, d[u]) : d[u];
+      ok = ok && fabsf(acc) <= bound;
+    }
+    if (!ok) return false;
+  }
+  for (; k < n; ++k) {
     const float d = __fsub_rn(x[k], r[k]);
     acc = cumulative ? __fadd_rn(acc, d) : d;
     if (!(fabsf(acc) <= bound)) return false;
   }
   return true;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Block row's candidate (and raw row) into the shared buffers.
+__device__ __forceinline__ void prefetch(float* s_x, float* s_rx, const float* __restrict__ xs,
+                                         const float* __restrict__ raw_x, size_t row, int n,
+                                         bool eb) {
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    cp_async4(s_x + i, xs + row * n + i);
+    if (eb) cp_async4(s_rx + i, raw_x + row * n + i);
+  }
+  cp_async_commit();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -112,27 +165,37 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
                    uint8_t* __restrict__ overwrite, const float* __restrict__ raw_x,
                    const float* __restrict__ raw_in, float* __restrict__ raw_out,
                    int nb, int n, int D, float d_crit, float rel_tol, float inv_n,
-                   float error_bound, int use_minmax, int use_ks, int eb, int err_cum,
+                   float error_bound, int use_minmax, int use_ks, int eb_in, int err_cum,
                    int dict_in_smem) {
+  const Chan ch{n, inv_n, d_crit, eb_in, err_cum};
+  const bool eb = ch.eb != 0;
+  const size_t dn = static_cast<size_t>(D) * n;
   extern __shared__ float smem[];
-  float* s_x = smem;                                         // n
-  float* s_rx = s_x + n;                                     // n if eb
-  float* s_dmin = s_rx + (eb ? n : 0);                       // D
-  float* s_dmax = s_dmin + D;                                // D
-  int* s_valid = reinterpret_cast<int*>(s_dmax + D);         // D
-  int* s_warp = s_valid + D;                                 // kWarps
-  int* s_dec = s_warp + kWarps;                              // do_ins, ins, count
-  float* s_dict = reinterpret_cast<float*>(s_dec + 4);       // D * n, optional
-  // s_dict + D * n: the raw rows, D * n, optional (eb)
+  float* s_dict = smem;                                          // D * n, optional
+  float* s_rdict = s_dict + (dict_in_smem ? dn : 0);             // D * n, optional (eb)
+  float* s_x = s_rdict + (dict_in_smem && eb ? dn : 0);          // 2 * n
+  float* s_rx = s_x + 2 * n;                                     // 2 * n if eb
+  float* s_dmin = s_rx + (eb ? 2 * n : 0);                       // D
+  float* s_dmax = s_dmin + D;                                    // D
+  unsigned* s_gate = reinterpret_cast<unsigned*>(s_dmax + D);    // kWarps
+  int* s_res = reinterpret_cast<int*>(s_gate + kWarps);          // 2 x kWarps
+  uint8_t* s_valid = reinterpret_cast<uint8_t*>(s_res + 2 * kWarps);  // D
+  uint8_t* s_hit = s_valid + D;                                  // kBatch
+  uint8_t* s_slot = s_hit + kBatch;                              // kBatch (slot < 256)
+  uint8_t* s_ow = s_slot + kBatch;                               // kBatch
+  uint8_t* s_bv = s_ow + kBatch;                                 // 2 x kBatch
 
   const int c = blockIdx.x;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const size_t dn = static_cast<size_t>(D) * n;
   float* dict = dict_in_smem ? s_dict : dict_out + c * dn;
-  float* rdict = eb ? (dict_in_smem ? s_dict + dn : raw_out + c * dn) : nullptr;
+  float* rdict = eb ? (dict_in_smem ? s_rdict : raw_out + c * dn) : nullptr;
+  const size_t row0 = static_cast<size_t>(c) * nb;
+  int top = 1;
+  while (2 * top <= ch.nf) top *= 2;
 
+  prefetch(s_x, s_rx, xs, raw_x, row0, n, eb);
   for (size_t i = t; i < dn; i += kThreads) dict[i] = dict_in[c * dn + i];
   if (eb)
     for (size_t i = t; i < dn; i += kThreads) rdict[i] = raw_in[c * dn + i];
@@ -141,60 +204,113 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
     s_dmax[i] = dmax_in[c * D + i];
     s_valid[i] = valid_in[c * D + i] != 0;
   }
-  if (t == 0) s_dec[2] = count_in[c];
-  __syncthreads();
+  // the masks of the first two batches; bv_next holds the third's
+  uint8_t bv_next = 0;
+  if (t < kBatch) {
+    s_bv[t] = t < nb ? bvalid[row0 + t] : 0;
+    s_bv[kBatch + t] = kBatch + t < nb ? bvalid[row0 + kBatch + t] : 0;
+    bv_next = 2 * kBatch + t < nb ? bvalid[row0 + 2 * kBatch + t] : 0;
+  }
+  int count = count_in[c];
 
   for (int b = 0; b < nb; ++b) {
-    const size_t row = static_cast<size_t>(c) * nb + b;
-    for (int i = t; i < n; i += kThreads) s_x[i] = xs[row * n + i];
-    if (eb)
-      for (int i = t; i < n; i += kThreads) s_rx[i] = raw_x[row * n + i];
+    const int j = b % kBatch;
+    const float* x = s_x + (b & 1) * n;
+    const float* rx = s_rx + (b & 1) * n;
+    // the candidate has landed; the last step's insert and reads are done
+    cp_async_wait_all();
     __syncthreads();
-
-    bool pass = false;
-    if (t < D && s_valid[t]) {
-      pass = !use_minmax ||
-             minmax_gate(s_x[0], s_x[n - 1], s_dmin[t], s_dmax[t], rel_tol);
-      if (pass && eb) pass = within_bound(rdict + t * n, s_rx, n, error_bound, err_cum);
-      if (pass && use_ks) pass = ks_row(dict + t * n, s_x, n, inv_n) <= d_crit;
-    }
-    // thread index == row index: the lowest passing row is the lowest set
-    // ballot bit of the lowest warp that has one
-    const unsigned m = __ballot_sync(0xffffffffu, pass);
-    if (lane == 0) s_warp[warp] = m ? warp * 32 + __ffs(m) - 1 : kSentinel;
-    __syncthreads();
-
-    if (t == 0) {
-      int best = kSentinel;
-      for (int w = 0; w < kWarps; ++w) best = min(best, s_warp[w]);
-      const bool bv = bvalid[row] != 0;
-      const int count = s_dec[2];
-      const bool hit = (best < kSentinel) && bv;
-      const int ins = count % D;
-      const bool do_ins = !hit && bv;
-      is_hit[row] = hit;
-      slot[row] = bv ? (hit ? best : ins) : 0;
-      overwrite[row] = do_ins && count >= D;
-      s_dec[0] = do_ins;
-      s_dec[1] = ins;
-      s_dec[2] = count + (do_ins ? 1 : 0);
-    }
-    __syncthreads();
-
-    if (s_dec[0]) {
-      const int ins = s_dec[1];
-      for (int i = t; i < n; i += kThreads) dict[ins * n + i] = s_x[i];
-      if (eb)
-        for (int i = t; i < n; i += kThreads) rdict[ins * n + i] = s_rx[i];
-      if (t == 0) {
-        s_dmin[ins] = s_x[0];
-        s_dmax[ins] = s_x[n - 1];
-        s_valid[ins] = 1;
+    if (b + 1 < nb)
+      prefetch(s_x + ((b + 1) & 1) * n, s_rx + ((b + 1) & 1) * n, xs, raw_x, row0 + b + 1, n,
+               eb);
+    if (j == 0 && b > 0) {
+      // store the last batch's decisions; stage the mask of the next batch
+      if (t < kBatch) {
+        const size_t r = row0 + b - kBatch + t;
+        is_hit[r] = s_hit[t];
+        slot[r] = s_slot[t];
+        overwrite[r] = s_ow[t];
+        const int next = b / kBatch + 1;
+        s_bv[(next & 1) * kBatch + t] = bv_next;
+        const int ahead = (next + 1) * kBatch + t;
+        bv_next = ahead < nb ? bvalid[row0 + ahead] : 0;
       }
     }
-    __syncthreads();
-  }
+    const bool bv = s_bv[((b / kBatch) & 1) * kBatch + j] != 0;
 
+    int best = kSentinel;
+    if (bv) {
+      bool pass = false;
+      if (t < D && s_valid[t]) {
+        pass = !use_minmax ||
+               minmax_gate(x[0], x[ch.nf - 1], s_dmin[t], s_dmax[t], rel_tol);
+        if (pass && eb) pass = within_bound(rdict + t * n, rx, ch.nf, error_bound, ch.err_cum);
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, pass);
+      if (lane == 0) s_gate[warp] = m;
+      __syncthreads();
+
+      if (use_ks) {
+        int total = 0;
+        for (int w = 0; w < kWarps; ++w) total += __popc(s_gate[w]);
+        for (int r = 0; r * kWarps < total; ++r) {
+          // warp w takes the (r * kWarps + w)-th passing row
+          const int k = r * kWarps + warp;
+          int res = kSentinel;
+          if (k < total) {
+            int w = 0, before = 0;
+            unsigned word = s_gate[0];
+            while (before + __popc(word) <= k) {
+              before += __popc(word);
+              word = s_gate[++w];
+            }
+            for (int i = before; i < k; ++i) word &= word - 1;
+            const int row = w * 32 + __ffs(word) - 1;
+            const float ks = ks_warp(dict + row * n, x, ch.nf, top, ch.inv_n, lane);
+            if (ks <= ch.d_crit) res = row;
+          }
+          if (lane == 0) s_res[(r & 1) * kWarps + warp] = res;
+          __syncthreads();
+          for (int w = 0; w < kWarps; ++w) best = min(best, s_res[(r & 1) * kWarps + w]);
+          if (best < kSentinel) break;
+        }
+      } else {
+        for (int w = kWarps - 1; w >= 0; --w)
+          if (s_gate[w]) best = w * 32 + __ffs(s_gate[w]) - 1;
+      }
+    }
+
+    // every thread decides alike
+    const bool hit = best < kSentinel;  // implies bv
+    const int ins = count % D;
+    const bool do_ins = !hit && bv;
+    if (t == 0) {
+      s_hit[j] = hit;
+      s_slot[j] = static_cast<uint8_t>(bv ? (hit ? best : ins) : 0);
+      s_ow[j] = do_ins && count >= D;
+    }
+    if (do_ins) {
+      for (int i = t; i < n; i += kThreads) dict[ins * n + i] = x[i];
+      if (eb)
+        for (int i = t; i < n; i += kThreads) rdict[ins * n + i] = rx[i];
+      if (t == 0) {
+        s_dmin[ins] = x[0];
+        s_dmax[ins] = x[ch.nf - 1];
+        s_valid[ins] = 1;
+      }
+      ++count;
+    }
+  }
+  __syncthreads();
+
+  // the last batch's decisions and the carry
+  const int last = nb - 1 - (nb - 1) % kBatch;
+  for (int i = t; last + i < nb; i += kThreads) {
+    const size_t r = row0 + last + i;
+    is_hit[r] = s_hit[i];
+    slot[r] = s_slot[i];
+    overwrite[r] = s_ow[i];
+  }
   if (dict_in_smem) {
     for (size_t i = t; i < dn; i += kThreads) dict_out[c * dn + i] = dict[i];
     if (eb)
@@ -203,17 +319,20 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
   for (int i = t; i < D; i += kThreads) {
     dmin_out[c * D + i] = s_dmin[i];
     dmax_out[c * D + i] = s_dmax[i];
-    valid_out[c * D + i] = static_cast<uint8_t>(s_valid[i]);
+    valid_out[c * D + i] = s_valid[i];
   }
-  if (t == 0) count_out[c] = s_dec[2];
+  if (t == 0) count_out[c] = count;
 }
 
-// Dynamic shared memory: per-step state, the candidate (and its raw row
-// with eb), and -- when dict_in_smem -- the dictionary (and its raw rows).
+// Dynamic shared memory: the candidate buffers (and raw rows with eb), the
+// row extremes, the gate and KS words, the valid flags, the staged
+// decisions and masks, and -- when dict_in_smem -- the dictionary (and its
+// raw rows).
 size_t smem_bytes(int n, int D, bool eb, bool dict_in_smem) {
   const int rows = eb ? 2 : 1;
-  const size_t base = sizeof(float) * (static_cast<size_t>(rows) * n + 2 * D) +
-                      sizeof(int) * (D + kWarps + 4);
+  const size_t bytes = static_cast<size_t>(D) + 5 * kBatch;
+  const size_t base = sizeof(float) * (2 * static_cast<size_t>(rows) * n + 2 * D) +
+                      sizeof(int) * 3 * kWarps + (bytes + 3) / 4 * 4;
   return base + (dict_in_smem ? sizeof(float) * rows * static_cast<size_t>(D) * n : 0);
 }
 

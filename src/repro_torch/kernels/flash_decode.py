@@ -12,11 +12,16 @@ head ``h`` reads kv head ``h // (H // Hkv)``.
 :func:`flash_decode` launches the kernel for CUDA tensors and runs the plain
 version, :func:`flash_decode_torch`, for CPU tensors.  The TPU kernel's
 ``CHUNK_C`` and its ``C % chunk == 0`` assertion have no counterpart: the
-kernel takes any C >= 1.
+kernel takes any C >= 1.  It splits the cache axis across CTAs; the split
+count comes from the library's ``*_plan`` entry (B, Hkv, C and the card's
+SM count and occupancy), cached per shape, and with more than one split
+the wrapper allocates the float32 workspace of the splits' partial
+results, which a second kernel of the same launch merges.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,9 +39,11 @@ NEG_INF = -1e30
 
 _FNS = {torch.float32: "flash_decode_f32", torch.float16: "flash_decode_f16",
         torch.bfloat16: "flash_decode_bf16"}
-# The C entry points return this when the tiles do not fit in a CTA's
-# shared memory (G * hd too large).
+# The C entry points return this when the two-stage ring of K and V tiles
+# does not fit in a CTA's shared memory, or hd > 256; the plan entry
+# returns -(_ERR_CUDA + e) for a CUDA error e.
 _ERR_SMEM = -1
+_ERR_CUDA = 1000
 
 
 def flash_decode_torch(q, k_cache, v_cache, valid):
@@ -57,11 +64,30 @@ def _kernel(dtype):
     per attention layer and decode step)."""
     fn = getattr(_build.load("flash_decode"), _FNS[dtype])
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
-                                               ctypes.c_void_p] \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] \
+            + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _splits(device, dtype, B, C, Hkv, G, hd):
+    """The kernel's split count of the cache axis for this shape on this
+    card (the C entry's plan, asked once per shape)."""
+    fn = getattr(_build.load("flash_decode"), _FNS[dtype] + "_plan")
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        splits = fn(B, C, Hkv, G, hd)
+    if splits == _ERR_SMEM:
+        raise KernelShapeError(
+            f"flash_decode: a two-stage ring of {dtype} K and V tiles of "
+            f"hd={hd} does not fit in a CTA's shared memory, or hd > 256 "
+            f"(one 8-element piece of a row a lane)")
+    if splits < 1:
+        raise RuntimeError(f"flash_decode plan failed: CUDA error "
+                           f"{-splits - _ERR_CUDA}")
+    return splits
 
 
 def _check(q, k_cache, v_cache, valid):
@@ -85,7 +111,11 @@ def _check(q, k_cache, v_cache, valid):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise KernelShapeError(
                 f"flash_decode: {name} is not contiguous or not 16-byte "
-                f"aligned (the kernel reads rows with 16-byte loads)")
+                f"aligned (the kernel copies rows in 16-byte pieces)")
+    if q.data_ptr() % 16:
+        raise KernelShapeError(
+            "flash_decode: q is not 16-byte aligned (the kernel reads it "
+            "with 16-byte loads)")
     if tuple(valid.shape) != (B, C) or valid.dtype != torch.bool \
             or (C > 1 and valid.stride(1) != 1):
         raise KernelShapeError(
@@ -124,15 +154,18 @@ def flash_decode(q, k_cache, v_cache, valid):
     if B == 0:
         return out
     fn = _kernel(k_cache.dtype)
+    splits = _splits(q.device, k_cache.dtype, B, C, Hkv, H // Hkv, hd)
+    ws_acc = ws_ml = 0
+    if splits > 1:  # the splits' (acc, (m, l)) for the combine kernel
+        ws = torch.empty(splits * B * H * (hd + 2), dtype=torch.float32,
+                         device=q.device)
+        ws_acc = ws.data_ptr()
+        ws_ml = ws_acc + 4 * splits * B * H * hd
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                valid.data_ptr(), valid.stride(0), out.data_ptr(), B, C, Hkv,
-                H // Hkv, hd, stream)
-    if rc == _ERR_SMEM:
-        raise KernelShapeError(
-            f"flash_decode: G={H // Hkv} query heads of hd={hd} per kv head "
-            f"do not fit in a CTA's shared memory")
+                valid.data_ptr(), valid.stride(0), out.data_ptr(), ws_acc,
+                ws_ml, B, C, Hkv, H // Hkv, hd, splits, stream)
     if rc != 0:
         raise RuntimeError(
             f"flash_decode kernel launch failed: CUDA error {rc}")

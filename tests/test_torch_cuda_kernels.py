@@ -78,6 +78,45 @@ def test_encode_scan_error_bound_matches_plain(dev, D, n, cumulative):
     assert k1.dict_in_smem(n, D, True) == (D * n <= 255 * 111)
 
 
+def _bits_equal(a, b):
+    if a.dtype == torch.float32:  # NaN rows of a carry compare by their bits
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("traffic", ["turnover", "special"])
+@pytest.mark.parametrize("D,n,minmax", [(9, 7, False), (255, 32, True),
+                                        (255, 111, True), (255, 111, False)])
+def test_encode_scan_turnover_and_nonfinite_blocks(dev, traffic, D, n,
+                                                   minmax):
+    """A dictionary that turns over (more levels than rows) and blocks with
+    ties, -0.0/+0.0, +-inf and NaN tails: decisions and carry equal to the
+    plain scan bit for bit (without the eq. 3 gate the KS sees the NaNs)."""
+    rng = np.random.default_rng(D * n)
+    if traffic == "turnover":
+        level = rng.integers(0, 384, (2, 1200, 1)).astype(np.float64)
+        x = rng.normal(level, 1.0, (2, 1200, n))
+    else:
+        x = np.round(rng.normal(0, 1, (2, 400, n)), 1)
+        x[rng.random(x.shape) < 0.05] = -0.0
+        kind = rng.integers(0, 4, x.shape[:2])
+        x[kind == 1, :max(1, n // 5)] = np.nan
+        x[kind == 2, 0] = np.inf
+        x[kind == 3, -1] = -np.inf
+    xs = torch.sort(torch.from_numpy(x).to(dev, torch.float32), -1).values
+    valid = torch.ones(xs.shape[:2], dtype=torch.bool, device=dev)
+    valid[1, ::7] = False
+    st = init_state(D, n, channels=2, device=dev)
+    kw = dict(d_crit=(int(0.4 * n) + 0.5) / n, rel_tol=0.5,
+              use_minmax=minmax)
+    got, gst = k1.encode_scan(xs, valid, st, **kw)
+    want, wst = k1.encode_scan_torch(xs, valid, st, **kw)
+    for a, b in zip((*got, *gst), (*want, *wst)):
+        assert _bits_equal(a, b)
+    if traffic == "turnover" and D == 255:
+        assert bool(got[2].any())  # the FIFO overwrote
+
+
 @pytest.mark.parametrize("D,n", [(1, 7), (8, 32), (9, 111), (255, 256)])
 @pytest.mark.parametrize("C", [1, 64])
 def test_dict_match_matches_plain(dev, C, D, n):
@@ -212,6 +251,27 @@ def test_flash_decode_matches_plain(dev, B, H, Hkv, hd, C, dtype):
     one = valid[:1].expand(B, C)
     assert float((k4.flash_decode(q, k, v, one)
                   - k4.flash_decode_torch(q, k, v, one)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,hd,C", [
+    (2, 8, 2, 64, 64 * 37 + 9),    # a ragged last split and last tile
+    (3, 24, 4, 128, 1000),          # G = 6: head groups of 2
+    (1, 32, 8, 128, 32768),         # decode_32k at B = 1
+])
+def test_flash_decode_split_shapes(dev, B, H, Hkv, hd, C, dtype):
+    q, k, v, valid = _k4_case(B, H, Hkv, hd, C, dtype, dev, seed=C)
+    splits = k4._splits(q.device, dtype, B, C, Hkv, H // Hkv, hd)
+    tiles = -(-C // 64)
+    assert 1 < splits <= tiles
+    full = torch.ones_like(valid)
+    for mask in (valid, full):  # the last row all masked, then all valid
+        got = k4.flash_decode(q, k, v, mask)
+        want = k4.flash_decode_torch(q, k, v, mask)
+        assert float((got - want).abs().max()) <= 1e-5
+    mean_v = v[-1].float().mean(0).repeat_interleave(H // Hkv, dim=0)
+    got = k4.flash_decode(q, k, v, valid)
+    assert float((got[-1] - mean_v).abs().max()) <= 1e-5
 
 
 def test_flash_decode_rejects_bad_operands(dev):
