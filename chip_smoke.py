@@ -25,13 +25,17 @@ Phases, each fatal on failure (no failure is caught):
               Decisions and final carry must be equal.
 4. K2      -- the sequential cumsum against its plain version and against
               ``np.cumsum`` of the host copy, bitwise, in f64/f32/f16 with a
-              leading -0.0.
+              leading -0.0; ragged R (1, 63, 65, 16383) x P (1, 2, 111,
+              255, 1024), as views whose storage offset (3 elements) is
+              not 16-byte aligned and as aligned tensors.
 5. K3      -- the dict_match kernel against its plain version, bitwise:
               C in {1, 64} x D in {1, 8, 9, 255} x n in {7, 32, 111, 256},
               rows in stored (unsorted) order with one equal to the
               candidate (distance 0), rows on the eq. 3 gate's boundary,
               f16/bf16 operands; on sorted rows its distances also equal
-              K1's plain KS.
+              K1's plain KS.  Rows with NaNs of both signs, +-inf, +-0.0 and
+              ties, stored and sorted, against sorted and unsorted
+              candidates, up to n = 4096.
 6. golden  -- the 8 streams of ``tests/golden`` encode byte for byte with
               ``backend="cuda"``; their cuda decode equals the host decode.
 7. main    -- the paper's Table I configurations (MAG std B=32; ANG
@@ -88,7 +92,10 @@ Phases, each fatal on failure (no failure is caught):
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
               with the error bound, at the ANG_delta feed shape; K3 at the
-              MAG and ANG step shapes; K4 at the serve shape and at a 32k
+              MAG and ANG step shapes, rows sorted (as the ops path passes
+              them) and in random order, with its launch plan (CTAs), and
+              at C=1, D=1, n=32 (the launch floor); K2 in f64 (the decode's
+              type), f32 and f16; K4 at the serve shape and at a 32k
               context (with its split count); K1 also in microseconds a
               block step; prints the ``{"kernels": [...]}`` line.
 
@@ -393,6 +400,7 @@ def phase_k1_bound(torch, dev):
 def phase_k3(torch, dev):
     from repro_torch.kernels import dict_match as k3
     from repro_torch.kernels import ops, ref
+    from repro_torch.testing import k3_special
     rng = np.random.default_rng(12)
     cases = [(C, D, n) for C in (1, 64) for D in (1, 8, 9, 255)
              for n in (7, 32, 111, 256)]
@@ -440,9 +448,26 @@ def phase_k3(torch, dev):
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"K3 {dt} operands == plain version")
+    special = [(64, 255, 32), (64, 255, 111), (2, 40, 33), (1, 1, 1),
+               (2, 9, 4096)]
+    for C, D, n in special:
+        for cand_sorted in (True, False):
+            xs, rows, lo, hi = k3_special(C, D, n, C * D + n, cand_sorted)
+            args = [torch.from_numpy(a).to(dev) for a in (xs, rows, lo, hi)]
+            srt = torch.from_numpy(np.sort(rows, axis=-1)).to(dev)
+            for order, r in (("stored", args[1]), ("sorted", srt)):
+                ks, mm = k3.dict_match_cuda(args[0], r, *args[2:], 0.3)
+                torch.cuda.synchronize()
+                ks_p, mm_p = ref.dict_match_ref(args[0], r, *args[2:], 0.3)
+                check(same_bits(torch, ks, ks_p) and torch.equal(mm, mm_p),
+                      f"K3 C={C} D={D} n={n} NaN/inf/+-0/ties, {order} rows, "
+                      f"{'sorted' if cand_sorted else 'unsorted'} candidate: "
+                      "kernel == plain version")
     say(f"[K3] {len(cases)} shapes bitwise equal to the plain version on the "
         "card (stored order, distance-0 rows, sorted rows == K1's plain "
-        "KS); gate boundary; f16/bf16 operands")
+        "KS); gate boundary; f16/bf16 operands; rows with NaNs of both "
+        "signs, +-inf, +-0 and ties, stored and sorted, sorted and unsorted "
+        f"candidates at {special}")
 
 
 def phase_k2(torch, dev):
@@ -464,8 +489,35 @@ def phase_k2(torch, dev):
                   np.cumsum(x, axis=1).tobytes(),
                   f"K2 == np.cumsum {dt.__name__} {R}x{P}")
             check(bool(torch.signbit(got[:, 0]).all()), "K2 keeps -0.0")
+    cases = 0
+    # 33 x 30000: rows over 48 KB in every dtype go in column chunks, the
+    # running sum carried from chunk to chunk
+    shapes = [(R, P) for R in (1, 63, 65, 16383)
+              for P in (1, 2, 111, 255, 1024)] + [(33, 30000)]
+    for dt in (np.float64, np.float32, np.float16):
+        for R, P in shapes:
+            x = (rng.normal(0, 3, (R, P))
+                 * 10.0 ** rng.integers(-3, 3, (R, 1))).astype(dt)
+            x[:, 0] = -0.0
+            want = np.cumsum(x, axis=1).tobytes()
+            for off in (0, 3):  # 3 elements: not 16-byte aligned
+                base = torch.from_numpy(np.concatenate(
+                    [np.zeros(off, dt), x.reshape(-1)])).to(dev)
+                view = base[off:].view(R, P)
+                got = k2.seq_cumsum(view)
+                torch.cuda.synchronize()
+                plain = k2.seq_cumsum_torch(view)
+                what = f"K2 {dt.__name__} {R}x{P} storage offset {off}"
+                check(got.cpu().numpy().tobytes() == want,
+                      f"{what}: == np.cumsum")
+                check(got.cpu().numpy().tobytes() ==
+                      plain.cpu().numpy().tobytes(),
+                      f"{what}: == plain version")
+                cases += 1
     say("[K2] bitwise equal to its plain version and to np.cumsum "
-        "(f64/f32/f16, leading -0.0)")
+        "(f64/f32/f16, leading -0.0); R in (1, 63, 65, 16383) x P in (1, 2, "
+        "111, 255, 1024) and 33 x 30000 (column chunks), x storage offset 0 "
+        f"and 3 elements: {cases} cases")
 
 
 def phase_golden(dev):
@@ -684,11 +736,18 @@ def phase_main(torch, dev, card):
         for what, fn in (("encode", encode), ("decode", decode)):
             say(f"[profile] {cfg_name} {what}: "
                 f"{json.dumps(device_profile(torch, fn))} [{card}]")
-        p0 = codec._transform(x[:, :step - step % B].reshape(
-            CHANNELS, -1, B).reshape(-1, B))[0]
-        first_chunks[cfg_name] = (codec, p0.reshape(CHANNELS, -1, p0.shape[-1]))
+        first_chunks[cfg_name] = first_chunk(codec, x)
         del x, ys
     return launches, first_chunks
+
+
+def first_chunk(codec, x):
+    """``(codec, payload (C, nb, n))`` of the first feed of traffic ``x``:
+    what K1 is timed on."""
+    B, step = codec.block_size, SAMPLES // CHUNKS
+    p0 = codec._transform(x[:, :step - step % B].reshape(
+        CHANNELS, -1, B).reshape(-1, B))[0]
+    return codec, p0.reshape(CHANNELS, -1, p0.shape[-1])
 
 
 def stream_hits(blobs):
@@ -853,14 +912,17 @@ def phase_auto(torch, dev, card, first_chunks):
         "chosen matcher decides the first feed as the fused scan does")
 
 
-def time_k3(torch, dev, C, D, n):
-    """K3 at an encoder step shape: C candidates against D full rows."""
+def time_k3(torch, dev, C, D, n, sorted_rows=False):
+    """K3 at an encoder step shape: C candidates against D full rows, in
+    random order or (as the ops path passes the dictionary) sorted."""
     from repro_torch.kernels import dict_match as k3
     from repro_torch.kernels import ref
     rng = np.random.default_rng(n)
     xs = torch.sort(torch.from_numpy(rng.normal(size=(C, n))).to(
         dev, torch.float32), dim=-1).values
     rows = torch.from_numpy(rng.normal(size=(C, D, n))).to(dev, torch.float32)
+    if sorted_rows:
+        rows = torch.sort(rows, dim=-1).values
     lo, hi = rows.amin(-1), rows.amax(-1)
     args = (xs, rows, lo, hi, 0.5)
     ms = cuda_ms(lambda: k3.dict_match_cuda(*args), reps=50, queued=True)
@@ -870,17 +932,19 @@ def time_k3(torch, dev, C, D, n):
     err = max(float((ks - ks_p).abs().max()),
               float((mm != mm_p).sum()))
     nbytes = 4 * (C * n + C * D * n + 2 * C * D + C * D) + C * D
-    # the least work per row is not the kernel's broadcast counts (3 n**2
-    # compares) but sorting the row (n log2 n compares) and merging it with
-    # the sorted candidate (2 n)
-    ops = int(round(C * D * (n * np.log2(n) + 2 * n)))
+    # the least work per row: sorting it (n log2 n compares; none for a
+    # sorted row) and merging it with the sorted candidate (2 n)
+    sort_ops = 0.0 if sorted_rows else n * np.log2(max(n, 2))
+    ops = int(round(C * D * (sort_ops + 2 * n)))
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_COMPARES * 1e3
     return {
         "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "shape": {"C": C, "D": D, "n": n},
-        "bytes": nbytes, "ops": ops,
+        "library_ms": None,
+        "shape": {"C": C, "D": D, "n": n, "rows": "sorted" if sorted_rows
+                  else "random"},
+        "plan": k3.plan(C, D, n), "bytes": nbytes, "ops": ops,
     }
 
 
@@ -973,10 +1037,10 @@ def time_k1(torch, dev, codec, pay, error_bound=None):
     }
 
 
-def time_k2(torch, dev, rows, width):
+def time_k2(torch, dev, rows, width, dtype=np.float64):
     from repro_torch.kernels import seq_cumsum as k2
     rng = np.random.default_rng(11)
-    x = rng.normal(0, 0.05, (rows, width))
+    x = rng.normal(0, 0.05, (rows, width)).astype(dtype)
     x[:, 0] = -0.0
     xt = torch.from_numpy(x).to(dev)
     ms = cuda_ms(lambda: k2.seq_cumsum(xt), reps=20, queued=True)
@@ -985,15 +1049,16 @@ def time_k2(torch, dev, rows, width):
     want = k2.seq_cumsum_torch(xt)
     library_ms = cuda_ms(lambda: torch.cumsum(xt, dim=1), reps=20,
                          queued=True)
-    nbytes = 2 * xt.numel() * 8
-    ops = rows * (width - 1)
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS["f64"] * 1e3
+    nbytes = 2 * xt.numel() * xt.element_size()
+    ops = rows * (width - 1)  # f16 adds in f32
+    rate = PEAK_OPS["f64" if dtype == np.float64 else "f32"]
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
     return {
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "max_abs_err": float((got - want).abs().max()),
+        "max_abs_err": float((got.double() - want.double()).abs().max()),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "shape": {"R": rows, "P": width, "dtype": "float64"},
+        "shape": {"R": rows, "P": width, "dtype": np.dtype(dtype).name},
     }
 
 
@@ -1248,6 +1313,58 @@ def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
     }
 
 
+def phase_timing(torch, dev, card, first_chunks):
+    """Each kernel at its main-path shapes (13.): returns the timings that
+    the kernels JSON line reports, by kernel."""
+    from repro_torch.core.decode import _pow2
+    k1_main = time_k1(torch, dev, *first_chunks["MAG"])
+    k1_ang = time_k1(torch, dev, *first_chunks["ANG_delta"])
+    ang_codec = first_chunks["ANG_delta"][0]
+    k1_ang_eb = time_k1(torch, dev, *first_chunks["ANG_delta"],
+                        error_bound=BOUNDS["ANG_delta"]["error_bound_rel"]
+                        * (ang_codec.value_range[1]
+                           - ang_codec.value_range[0]))
+    mag_codec, mag_pay = first_chunks["MAG"]
+    k1_turn = time_k1(torch, dev, mag_codec,
+                      turnover(*mag_pay.shape, seed=5))
+    nb_ang = SAMPLES // CONFIGS["ANG_delta"]["block_size"]
+    P_ang = CONFIGS["ANG_delta"]["block_size"] - 1
+    k2_main = time_k2(torch, dev, _pow2(nb_ang), P_ang)
+    k2_f32 = time_k2(torch, dev, _pow2(nb_ang), P_ang, np.float32)
+    k2_f16 = time_k2(torch, dev, _pow2(nb_ang), P_ang, np.float16)
+    D = mag_codec.num_dict
+    n_mag, n_ang = mag_pay.shape[-1], ang_codec.block_size - 1
+    # the ops path passes the dictionary's rows, which are sorted
+    k3_mag = time_k3(torch, dev, CHANNELS, D, n_mag, sorted_rows=True)
+    k3_mag_rnd = time_k3(torch, dev, CHANNELS, D, n_mag)
+    k3_ang = time_k3(torch, dev, CHANNELS, D, n_ang, sorted_rows=True)
+    k3_ang_rnd = time_k3(torch, dev, CHANNELS, D, n_ang)
+    k3_floor = time_k3(torch, dev, 1, 1, 32, sorted_rows=True)
+    k4_serve = time_k4(torch, dev, SERVE_BATCH, SERVE_MAX_SEQ)
+    k4_32k = time_k4(torch, dev, SERVE_BATCH, 32768)
+    for name, t in (("K1 MAG", k1_main), ("K1 ANG", k1_ang),
+                    ("K1 ANG_delta error bound", k1_ang_eb),
+                    ("K1 turnover", k1_turn), ("K2 ANG_delta f64", k2_main),
+                    ("K2 ANG_delta shape f32", k2_f32),
+                    ("K2 ANG_delta shape f16", k2_f16),
+                    ("K3 MAG step, sorted rows", k3_mag),
+                    ("K3 MAG step, random rows", k3_mag_rnd),
+                    ("K3 ANG step, sorted rows", k3_ang),
+                    ("K3 ANG step, random rows", k3_ang_rnd),
+                    ("K3 launch floor (C=1, D=1, n=32)", k3_floor),
+                    ("K4 serve", k4_serve), ("K4 decode_32k", k4_32k)):
+        say(f"[timing] {name} {json.dumps(t)} [{card}]")
+        tol = K4_TOL if name.startswith("K4") else 0.0
+        check(t["max_abs_err"] <= tol,
+              f"{name}: kernel == plain version at the timed shape "
+              f"(max_abs_err {t['max_abs_err']}, tolerance {tol})")
+    check(k1_turn["overwrites"] > 0,
+          f"turnover traffic turns the dictionary over "
+          f"({k1_turn['overwrites']} overwrites)")
+    return {"encode_step": k1_main, "seq_cumsum": k2_main,
+            "dict_match": k3_mag, "flash_decode": k4_serve}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1279,60 +1396,25 @@ def main() -> int:
     phase_auto(torch, dev, card, first_chunks)
     phase_k4(torch, dev)
     launches["flash_decode"] = phase_serve(torch, dev, card)
+    timed = phase_timing(torch, dev, card, first_chunks)
 
-    from repro_torch.core.decode import _pow2
-    k1_main = time_k1(torch, dev, *first_chunks["MAG"])
-    k1_ang = time_k1(torch, dev, *first_chunks["ANG_delta"])
-    ang_codec = first_chunks["ANG_delta"][0]
-    k1_ang_eb = time_k1(torch, dev, *first_chunks["ANG_delta"],
-                        error_bound=BOUNDS["ANG_delta"]["error_bound_rel"]
-                        * (ang_codec.value_range[1]
-                           - ang_codec.value_range[0]))
-    mag_codec, mag_pay = first_chunks["MAG"]
-    k1_turn = time_k1(torch, dev, mag_codec,
-                      turnover(*mag_pay.shape, seed=5))
-    nb_ang = SAMPLES // CONFIGS["ANG_delta"]["block_size"]
-    k2_main = time_k2(torch, dev, _pow2(nb_ang),
-                      CONFIGS["ANG_delta"]["block_size"] - 1)
-    D = mag_codec.num_dict
-    k3_mag = time_k3(torch, dev, CHANNELS, D, mag_pay.shape[-1])
-    k3_ang = time_k3(torch, dev, CHANNELS, D, ang_codec.block_size - 1)
-    k4_serve = time_k4(torch, dev, SERVE_BATCH, SERVE_MAX_SEQ)
-    k4_32k = time_k4(torch, dev, SERVE_BATCH, 32768)
-    for name, t in (("K1 MAG", k1_main), ("K1 ANG", k1_ang),
-                    ("K1 ANG_delta error bound", k1_ang_eb),
-                    ("K1 turnover", k1_turn), ("K2 ANG_delta", k2_main),
-                    ("K3 MAG step", k3_mag), ("K3 ANG step", k3_ang),
-                    ("K4 serve", k4_serve), ("K4 decode_32k", k4_32k)):
-        say(f"[timing] {name} {json.dumps(t)} [{card}]")
-        tol = K4_TOL if name.startswith("K4") else 0.0
-        check(t["max_abs_err"] <= tol,
-              f"{name}: kernel == plain version at the timed shape "
-              f"(max_abs_err {t['max_abs_err']}, tolerance {tol})")
-    check(k1_turn["overwrites"] > 0,
-          f"turnover traffic turns the dictionary over "
-          f"({k1_turn['overwrites']} overwrites)")
-
-    def entry(name, source, replaces, t, n_launch):
+    def entry(name, source, replaces):
+        t = timed[name]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n_launch,
+                "replaces": replaces, "launches": launches[name],
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
     kernels = {"kernels": [
         entry("encode_step", "src/repro_torch/csrc/encode_step.cu",
-              "src/repro/kernels/encode_step.py:306", k1_main,
-              launches["encode_step"]),
+              "src/repro/kernels/encode_step.py:306"),
         entry("seq_cumsum", "src/repro_torch/csrc/seq_cumsum.cu",
-              "src/repro/kernels/seq_cumsum.py:58", k2_main,
-              launches["seq_cumsum"]),
+              "src/repro/kernels/seq_cumsum.py:58"),
         entry("dict_match", "src/repro_torch/csrc/dict_match.cu",
-              "src/repro/kernels/dict_match.py:100", k3_mag,
-              launches["dict_match"]),
+              "src/repro/kernels/dict_match.py:100"),
         entry("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
-              "src/repro/kernels/flash_decode.py:76", k4_serve,
-              launches["flash_decode"]),
+              "src/repro/kernels/flash_decode.py:76"),
     ]}
     say(f"[done] {time.perf_counter() - T_START:.1f} s")
     print(json.dumps(kernels))

@@ -33,9 +33,9 @@
 //     over a sorted array: O(log n) per point where the merge walk took O(n)
 //     steps of one thread.  Both arrays are sorted with NaNs last, so the
 //     predicate holds on a prefix and each count is the integer the
-//     broadcast compares give; a NaN point counts 0, as there.  The gaps
-//     come from ks_arith.cuh and a shuffle max ends the row, so every KS
-//     value is the same float.  The first pass in warp order is the lowest
+//     broadcast compares give; a NaN point counts 0, as there.  The counts
+//     are ks_count.cuh's ks_warp, which K3 shares; the gaps come from
+//     ks_arith.cuh, so every KS value is the same float.  The first pass in warp order is the lowest
 //     passing row; when more rows pass the gate than there are warps,
 //     further rounds take the next rows in order until one passes.
 //   * Decision: every thread folds the warps' results (eight shared words)
@@ -58,7 +58,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "ks_arith.cuh"
+#include "ks_count.cuh"
 
 namespace {
 
@@ -74,33 +74,6 @@ struct Chan {
   int eb;        // error gate on
   int err_cum;   // on the running sum of differences
 };
-
-// KS distance of the sorted candidate x against the sorted row d, by a warp:
-// lane l takes the points j = l, l + 32, ...  At point j the three counts
-// #{d <= x_j}, #{x <= d_j} and #{d <= d_j} are binary searches with the <=
-// predicate, stepped together so their loads are in flight at once: from
-// the largest power of two top <= n down to 1, a count moves up by the step
-// when the element at count + step - 1 still holds the predicate.  Both
-// arrays are sorted with NaNs last, so the predicate holds on a prefix and
-// the search ends on its length.
-__device__ __forceinline__ float ks_warp(const float* __restrict__ d,
-                                         const float* __restrict__ x, int n, int top,
-                                         float inv_n, int lane) {
-  float m = 0.0f;
-  for (int j = lane; j < n; j += 32) {
-    const float xj = x[j], dj = d[j];
-    int cnt_d = 0, cnt_x = 0, rank_d = 0;
-    for (int s = top; s > 0; s >>= 1) {
-      const int a = cnt_d + s, b = cnt_x + s, r = rank_d + s;
-      if (a <= n && d[a - 1] <= xj) cnt_d = a;
-      if (b <= n && x[b - 1] <= dj) cnt_x = b;
-      if (r <= n && d[r - 1] <= dj) rank_d = r;
-    }
-    m = fmaxf(m, fmaxf(gap_at_candidate(j, cnt_d, inv_n), gap_at_row(cnt_x, rank_d, inv_n)));
-  }
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  return m;
-}
 
 // Every |x_k - r_k| (or, cumulative, every |sum_{i<=k} (x_i - r_i)|) within
 // the bound; a NaN fails.  The sum adds left to right; four differences are
@@ -266,7 +239,7 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
             }
             for (int i = before; i < k; ++i) word &= word - 1;
             const int row = w * 32 + __ffs(word) - 1;
-            const float ks = ks_warp(dict + row * n, x, ch.nf, top, ch.inv_n, lane);
+            const float ks = ks_warp(dict + row * n, x, x, ch.nf, top, ch.inv_n, lane);
             if (ks <= ch.d_crit) res = row;
           }
           if (lane == 0) s_res[(r & 1) * kWarps + warp] = res;

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: each held against its plain version
 (decisions and carry equal, cumsum and KS distances bitwise, K4 within
-1e-5), plus the golden corpus through ``backend="cuda"``, the ``"ops"``
-matcher and the LM serve path's decode through K4.  Marked
-``cuda``; without a card every test skips.
+1e-5; K3 also on NaNs of both signs, +-inf, +-0.0, ties and unsorted
+candidates up to n = 4096, K2 on ragged and misaligned views), plus the
+golden corpus through ``backend="cuda"``, the ``"ops"`` matcher and the LM
+serve path's decode through K4.  Marked ``cuda``; without a card every
+test skips.
 
 Run on a machine with a card: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda_kernels.py``.
@@ -23,6 +25,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import flash_decode as k4  # noqa: E402
 from repro_torch.kernels import seq_cumsum as k2  # noqa: E402
 from repro_torch.models.attention import ring_valid  # noqa: E402
+from repro_torch.testing import k3_special  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -137,6 +140,29 @@ def test_dict_match_matches_plain(dev, C, D, n):
                        ref.ks_counts(xs, srt, float(np.float32(1.0 / n))))
 
 
+@pytest.mark.parametrize("C,D,n", [(64, 255, 32), (64, 255, 111),
+                                   (2, 40, 33), (1, 1, 1), (2, 9, 4096)])
+@pytest.mark.parametrize("cand_sorted", [True, False])
+@pytest.mark.parametrize("rows_sorted", [True, False])
+def test_dict_match_special_values(dev, C, D, n, cand_sorted, rows_sorted):
+    xs, rows, lo, hi = k3_special(C, D, n, C + D + n, cand_sorted,
+                                  rows_sorted)
+    t = [torch.from_numpy(a).to(dev) for a in (xs, rows, lo, hi)]
+    ks, mm = k3.dict_match_cuda(*t, 0.3)
+    ks_p, mm_p = ref.dict_match_ref(*t, 0.3)
+    assert torch.equal(ks.view(torch.int32), ks_p.view(torch.int32))
+    assert torch.equal(mm, mm_p)
+
+
+def test_dict_match_plan_fills_the_card(dev):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (32, 111):  # every warp of the grid in one wave
+        plan = k3.plan(64, 255, n)
+        assert sms <= plan["ctas"] <= plan["cta_slots"]
+        assert plan["warps"] == 8
+    assert k3.plan(1, 1, k3.MAX_N)["warps"] >= 1
+
+
 def test_dict_match_rejects_bad_operands(dev):
     xs = torch.zeros((2, 8), device=dev)
     rows = torch.zeros((2, 3, 8), device=dev)
@@ -183,6 +209,25 @@ def test_seq_cumsum_bitwise(dev, dtype):
     x[:, 0] = -0.0
     got = k2.seq_cumsum(torch.from_numpy(x).to(dev)).cpu().numpy()
     assert got.tobytes() == np.cumsum(x, axis=1).tobytes()
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.float16])
+@pytest.mark.parametrize("R,P", [(R, P) for R in (1, 63, 65, 16383)
+                                 for P in (1, 2, 111, 255, 1024)]
+                         + [(33, 30000)])
+def test_seq_cumsum_ragged_and_misaligned(dev, dtype, R, P):
+    """Ragged tiles, even widths (padded rows), rows over 48 KB in every
+    dtype (column chunks, each row's sum carried from chunk to chunk) and a
+    view whose storage offset (3 elements) is not 16-byte aligned."""
+    x = np.random.default_rng(R + P).normal(0, 3, (R, P)).astype(dtype)
+    x[:, 0] = -0.0
+    want = np.cumsum(x, axis=1).tobytes()
+    base = torch.from_numpy(np.concatenate([np.zeros(3, dtype),
+                                            x.reshape(-1)])).to(dev)
+    for view in (base[3:].view(R, P), base[3:].clone().view(R, P)):
+        got = k2.seq_cumsum(view)
+        assert got.cpu().numpy().tobytes() == want
+        assert torch.equal(got, k2.seq_cumsum_torch(view))
 
 
 def test_empty_operands_launch_nothing(dev):
