@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of IDEALEM on one CUDA card: build, check, time.
 
-It drives both of the port's paths: the codec round trip (phases 3-10)
-and the LM serve path (phases 11-12).
+It drives both of the port's paths: the codec round trip (phases 3-11)
+and the LM serve path (phases 12-13).
 
 Run from the root of a checkout, with no arguments:
 
@@ -21,7 +21,12 @@ Phases, each fatal on failure (no failure is caught):
               (carries compared bit for bit); and the error-bounded mode
               (std and cumulative) at D=255, n=111 (sorted and raw
               dictionaries fill shared memory to its edge) and at n=256
-              (global memory).
+              (global memory).  With the chan operand (adaptive cohorts):
+              lanes of widths n-3..n padded with +inf, per-lane d_crit,
+              error metric and armed gate, NaN/+-inf/-0.0 blocks with and
+              without the eq. 3 gate, both dictionary layouts, and rows
+              stored at width n-1 with NaNs, grown to n ([.., NaN, +inf])
+              and queried by candidates with +inf inside their width.
               Decisions and final carry must be equal.
 4. K2      -- the sequential cumsum against its plain version and against
               ``np.cumsum`` of the host copy, bitwise, in f64/f32/f16 with a
@@ -64,7 +69,25 @@ Phases, each fatal on failure (no failure is caught):
 10. auto   -- ``matcher="auto"`` resolved on the card at the MAG and ANG
               shapes: the probe's times and choice; the choice decides the
               first feed as the fused scan does.
-11. K4     -- the flash_decode kernel against its plain version on the
+11. adaptive -- ``IdealemCodec(adaptive=True)`` (the MAG configuration,
+              the default SelectorConfig) on 64 channels, MAG traffic on
+              the even ones and ANG traffic on the odd ones, all 16 chunks:
+              the ANG lanes switch to delta (width 31) beside the std MAG
+              lanes (32), and each feed is one K1 launch with its chan
+              operand.  Checks: one K1 launch per feed and no K3 launch;
+              switches happened and a dispatch held both widths; the
+              streams equal the per-channel loop's
+              (``REPRO_TORCH_ADAPTIVE_LOOP=1``, one static K1 launch per
+              channel a feed) byte for byte; four lanes of the first mixed
+              dispatch (two switched) equal ``encode_decisions_mixed_np``
+              on its padded float32 cohort; the first 4 feeds of 4
+              channels equal ``backend="torch"`` (the plain mixed scan);
+              cuda decode == numpy decode on every channel; a run at
+              ``error_bound=3.0`` holds the bound on every channel, its
+              delta lanes on the cumulative gate.  Prints MB/s, hit rate,
+              switches by channel kind, the selectors' and the staging's
+              host seconds and a ``[profile]`` line of the encode.
+12. K4     -- the flash_decode kernel against its plain version on the
               card, within 1e-5: the JAX test's shapes, C in {1, 33, 700,
               2048}, G in {1, 4, 16}, hd in {64, 128}, f32/bf16/f16 caches,
               rows masked by ``decode_attention``'s ring formula (plain,
@@ -72,7 +95,7 @@ Phases, each fatal on failure (no failure is caught):
               mean of V); shapes split along C with a ragged last split,
               G=6 in head groups and C=32,768 at B=1.  Prints the split
               counts.
-12. serve  -- granite-3-8b at full width (weights from a seeded
+13. serve  -- granite-3-8b at full width (weights from a seeded
               ``torch.Generator``) through ``ServeEngine.generate``: 8
               numpy-seeded prompts of 256 tokens, 64 greedy tokens,
               max_seq 2048.  Checks: one K4 launch per layer and step
@@ -87,11 +110,13 @@ Phases, each fatal on failure (no failure is caught):
               (device operations a step; K4's and its combine kernel's
               device ms), and the host's milliseconds to issue those steps
               unprofiled beside their wall time.
-13. timing -- each kernel at a main-path shape against its plain version
+14. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
-              with the error bound, at the ANG_delta feed shape; K3 at the
+              with the error bound, at the ANG_delta feed shape, and with
+              its chan operand at the adaptive feed shape (C=64, nb=2048,
+              n=32, half the lanes at width 31: ``K1 mixed``); K3 at the
               MAG and ANG step shapes, rows sorted (as the ops path passes
               them) and in random order, with its launch plan (CTAs), and
               at C=1, D=1, n=32 (the launch floor); K2 in f64 (the decode's
@@ -395,6 +420,94 @@ def phase_k1_bound(torch, dev):
     say(f"[K1] error bound: 6 cases equal to the plain version, raw rows "
         f"included (hits {seen[0]}, fewer than without the bound by "
         f"{seen[1]}); D=255 n=111 in shared memory, n=256 in global memory")
+    phase_k1_chan(torch, dev)
+
+
+def k1_pair(torch, xs, valid, st, what, **kw):
+    """K1 and its plain version on the same operands: decisions and carry
+    must be equal bit for bit.  Returns the kernel's result."""
+    from repro_torch.kernels import encode_step as k1
+    got, gst = k1.encode_scan(xs, valid, st, **kw)
+    torch.cuda.synchronize()
+    want, wst = k1.encode_scan_torch(xs, valid, st, **kw)
+    for a, b, name in zip((*got, *gst), (*want, *wst),
+                          ("is_hit", "slot", "overwrite", *gst._fields)):
+        check(same_bits(torch, a, b), f"{what}: {name}")
+    return got, gst
+
+
+def phase_k1_chan(torch, dev):
+    """K1's chan operand (the mixed-mode scan of adaptive cohorts) against
+    the plain version: lanes of different widths (+inf pads), per-lane
+    d_crit, error metric and armed gate; NaN/+-inf/-0.0 blocks with and
+    without the eq. 3 gate; both dictionary layouts; and rows stored at a
+    narrower width, grown by ``repad_state_n`` to [.., NaN, +inf] and
+    queried by candidates whose +inf pads fall inside their width."""
+    from repro_torch.core.encoder import chan_params, init_state, repad_state_n
+    from repro_torch.kernels import encode_step as k1
+    from repro_torch.testing import mixed_cohort
+    C, nb = 6, 320
+    cases = [(9, 16, True, None, False), (9, 16, False, None, True),
+             (255, 32, True, None, True), (255, 32, False, None, True),
+             (255, 111, True, None, False), (255, 111, False, None, True),
+             (255, 256, True, None, False), (9, 32, True, 0.5, False),
+             (255, 32, False, 0.5, True), (255, 111, True, 0.5, False)]
+    seen = np.zeros(3, dtype=np.int64)  # hits, misses, demoted would-be hits
+    layouts = set()
+    for i, (D, n, mm, bound, nonfinite) in enumerate(cases):
+        blocks, valid, nf, dc, ec, ebo = mixed_cohort(C, nb, n, seed=i,
+                                                      nonfinite=nonfinite)
+        raw = torch.from_numpy(blocks).to(dev)
+        xs = torch.sort(raw, dim=-1).values
+        vt = torch.from_numpy(valid).to(dev)
+        kw = dict(d_crit=0.0, rel_tol=0.5, use_minmax=mm,
+                  chan=chan_params(nf, dc, ec, ebo, dev).block())
+        if bound is not None:
+            kw.update(raw=raw, error_bound=bound)
+        eb = bound is not None
+        st = init_state(D, n, channels=C, device=dev, raw=eb)
+        got, _ = k1_pair(torch, xs, vt, st, f"K1 chan D={D} n={n} mm={mm} "
+                         f"bound={bound} nonfinite={nonfinite}", **kw)
+        layouts.add(k1.dict_in_smem(n, D, eb, chan=True))
+        h = got[0][vt]
+        seen[:2] += [int(h.sum()), int((~h).sum())]
+        if eb:
+            free = k1.encode_scan(xs, vt, init_state(D, n, channels=C,
+                                                     device=dev), **dict(
+                kw, raw=None, error_bound=None))[0][0]
+            seen[2] += int(free.sum() - got[0].sum())
+    check(np.all(seen > 0) and layouts == {True, False},
+          f"K1 chan saw hits/misses/demotions {seen}, layouts {layouts}")
+    grown = 0
+    for D, n in ((9, 32), (255, 32), (255, 111)):
+        # feed A at width n - 1 stores rows with NaNs; the cohort grows to n
+        # (lane 0 widens), the other lanes keep their width
+        wa = [n - 1, n - 3, n - 2, n - 1, n - 4, n - 2]
+        st = init_state(D, n - 1, channels=C, device=dev)
+        for feed, widths in ((0, wa), (1, [n] + wa[1:])):
+            width = n - 1 + feed
+            blocks, valid, _, dc, ec, ebo = mixed_cohort(
+                C, nb, width, seed=50 + D + n + feed, widths=widths,
+                nonfinite=True)
+            xs = torch.sort(torch.from_numpy(blocks).to(dev), dim=-1).values
+            chan = chan_params(widths, dc, ec, ebo, dev).block()
+            if feed:
+                st = repad_state_n(st, n)
+                rows = st.sorted_blocks
+                # a NaN before a grown +inf: not sorted NaN-last
+                bad = (torch.isnan(rows[..., :-1]) & torch.isinf(rows[..., 1:])
+                       ).any(-1) & st.valid
+                grown += int(bad.sum())
+            _, st = k1_pair(torch, xs, torch.from_numpy(valid).to(dev), st,
+                            f"K1 chan repad D={D} n={n} feed {feed}",
+                            d_crit=0.0, rel_tol=0.5, use_minmax=False,
+                            chan=chan)
+    check(grown > 0, f"K1 chan: grown rows [.., NaN, +inf] seen ({grown})")
+    say(f"[K1] chan: {len(cases)} cohorts of 6 lanes (widths n-3..n, "
+        f"per-lane d_crit/error metric/gate) and 6 grown feeds equal to the "
+        f"plain version (hits {seen[0]}, misses {seen[1]}, demoted "
+        f"{seen[2]}; {grown} grown rows [.., NaN, +inf] queried); both "
+        f"dictionary layouts")
 
 
 def phase_k3(torch, dev):
@@ -542,20 +655,22 @@ def phase_golden(dev):
         "cuda decode == numpy decode")
 
 
-def make_traffic(cfg_name):
+def make_traffic(cfg_name, channels=range(CHANNELS)):
+    """The configuration's traffic for ``channels`` (rows in that order;
+    channel c takes template c % 4 and seed c)."""
     from repro_torch.data.synthetic import pmu_angle, pmu_magnitude
-    x = np.empty((CHANNELS, SAMPLES), dtype=np.float64)
+    x = np.empty((len(channels), SAMPLES), dtype=np.float64)
     rate = SAMPLES / REF_SAMPLES
-    for c in range(CHANNELS):
+    for i, c in enumerate(channels):
         if cfg_name == "MAG":
             level, noise, tap_step, shifts = MAG_TEMPLATES[c % 4]
-            x[c] = pmu_magnitude(
+            x[i] = pmu_magnitude(
                 SAMPLES, level=level, noise=noise, tap_step=tap_step,
                 n_shifts=round(shifts * rate), n_taps=round(MAG_TAPS * rate),
                 seed=c)
         else:
             slope, noise = ANG_TEMPLATES[c % 4]
-            x[c] = pmu_angle(SAMPLES, slope=slope, noise=noise, seed=c)
+            x[i] = pmu_angle(SAMPLES, slope=slope, noise=noise, seed=c)
     return x
 
 
@@ -751,8 +866,9 @@ def first_chunk(codec, x):
 
 
 def stream_hits(blobs):
-    from repro_torch.core.stream import _parse_arrays
-    return sum(int(_parse_arrays(b)[1].is_hit.sum()) for b in blobs)
+    """Hit blocks over the streams (sections of any mode)."""
+    from repro_torch.core.stream import _walk_all
+    return sum(int(_walk_all(memoryview(b))[1].sum()) for b in blobs)
 
 
 def unbounded(torch, dev, cfg_name):
@@ -912,6 +1028,254 @@ def phase_auto(torch, dev, card, first_chunks):
         "chosen matcher decides the first feed as the fused scan does")
 
 
+def adaptive_traffic():
+    """The adaptive phase's 64 channels: MAG traffic on the even channels,
+    ANG traffic on the odd ones (each channel's own template and seed)."""
+    x = np.empty((CHANNELS, SAMPLES), dtype=np.float64)
+    x[0::2] = make_traffic("MAG", range(0, CHANNELS, 2))
+    x[1::2] = make_traffic("ANG", range(1, CHANNELS, 2))
+    return x
+
+
+def adaptive_encode(torch, codec, x, chunks=None, capture=None):
+    """``(per-feed segments [channel][feed], the session, the lane widths
+    of each feed's dispatch, host seconds in the selectors)`` of the first
+    ``chunks`` feeds of ``x`` through ``codec.session(channels=C)``, ending
+    in a device sync.  ``capture`` (a dict) records the first dispatch
+    whose lanes differ in width: its cohort carry before the scan, its
+    entries and its decisions, for lanes ``capture["lanes"](session)``."""
+    step, chunks = SAMPLES // CHUNKS, chunks or CHUNKS
+    sess = codec.session(channels=len(x))
+    sel_s = [0.0]
+
+    def timed(fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sel_s[0] += time.perf_counter() - t0
+            return out
+        return run
+
+    for sel in sess._selectors:
+        sel.decide, sel.observe = timed(sel.decide), timed(sel.observe)
+    parts = [[] for _ in range(len(x))]
+    widths = []
+    for lo in range(0, chunks * step, step):
+        if capture is not None and sess._mixed is not None and \
+                "dec" not in capture:
+            watch(sess, capture)
+        for c, seg in enumerate(sess.feed(x[:, lo:lo + step])):
+            parts[c].append(seg)
+        if sess._mixed is not None:
+            widths.append(sorted(set(sess._mixed.lane_n.tolist())))
+    for c, seg in enumerate(sess.finish()):
+        parts[c].append(seg)
+    torch.cuda.synchronize()
+    return parts, sess, widths, sel_s[0]
+
+
+def watch(sess, capture):
+    """Wrap the session's cohort dispatch once (see adaptive_encode)."""
+    cohort = sess._mixed
+    if getattr(cohort, "_watched", False):
+        return
+    orig = cohort.decide
+
+    def decide(entries, **kw):
+        if "dec" in capture or len({p.shape[-1] for _, p, *_ in entries}) < 2:
+            return orig(entries, **kw)
+        lanes = capture["lanes"](sess)
+        capture["state"] = {f: v[lanes].cpu().numpy()
+                            for f, v in cohort.state._asdict().items()}
+        capture["entries"] = [entries[c] for c in lanes]
+        out = orig(entries, **kw)
+        capture["dec"] = [out[c] for c in lanes]
+        return out
+
+    cohort.decide, cohort._watched = decide, True
+
+
+def oracle_check(capture, codec):
+    """The captured dispatch's decisions for its lanes against the numpy
+    oracle (``encode_decisions_mixed_np``) on the same padded float32
+    cohort, each lane starting from its carry before the scan."""
+    from repro_torch.core.npref import NpDictState, encode_decisions_mixed_np
+    ents, st = capture["entries"], capture["state"]
+    nb = max(p.shape[0] for _, p, *_ in ents)
+    n_max = max(p.shape[1] for _, p, *_ in ents)
+    cohort = np.full((len(ents), nb, n_max), np.inf, dtype=np.float32)
+    states = []
+    for i, (_, p, *_) in enumerate(ents):
+        cohort[i, :p.shape[0], :p.shape[1]] = p
+        nf = p.shape[1]
+        states.append(NpDictState(
+            blocks=[row[:nf].copy() if ok else None for row, ok in
+                    zip(st["sorted_blocks"][i], st["valid"][i])],
+            dmin=st["dmin"][i].astype(np.float64),
+            dmax=st["dmax"][i].astype(np.float64),
+            count=int(st["count"][i])))
+    want, _ = encode_decisions_mixed_np(
+        cohort, num_dict=codec.num_dict,
+        n_valid=[p.shape[1] for _, p, *_ in ents],
+        d_crit=[dc for _, _, dc, *_ in ents], rel_tol=codec.rel_tol,
+        states=states)
+    for i, dec in enumerate(capture["dec"]):
+        for w, g, name in zip(want, dec, ("is_hit", "slot", "overwrite")):
+            check(np.array_equal(w[i], g),
+                  f"adaptive lane {ents[i][0]}: {name} == numpy oracle")
+    return [int(e[0]) for e in ents], [int(p.shape[1]) for _, p, *_ in ents]
+
+
+def phase_adaptive(torch, dev, card):
+    """Adaptive mode selection on ``backend="cuda"`` (IdealemCodec(adaptive=
+    True) with the default SelectorConfig, the paper's MAG configuration)
+    on 64 channels of MAG (even) and ANG (odd) traffic, 16 feeds of 65,536
+    samples: one K1 launch with its chan operand a feed.  Returns the K1
+    launches of its paths and the first feed's mixed cohort for timing."""
+    import os
+    from repro_torch import IdealemCodec
+    from repro_torch.core.session import _ADAPTIVE_LOOP_ENV
+    from repro_torch.core.stream import decode_stream
+    from repro_torch.kernels import dict_match as k3
+    from repro_torch.kernels import encode_step as k1
+    x = adaptive_traffic()
+    codec = IdealemCodec(device=dev, adaptive=True, **CONFIGS["MAG"])
+
+    def lanes(sess):  # two lanes that switched and two that did not
+        sw = [c for c in range(CHANNELS) if sess._stats[c].mode_switches]
+        still = [c for c in range(0, CHANNELS, 2)
+                 if not sess._stats[c].mode_switches]
+        return sw[:2] + still[:2]
+
+    capture = {"lanes": lanes}
+    k1.launches = k3.launches = 0
+    t0 = time.perf_counter()
+    parts, sess, widths, sel_s = adaptive_encode(torch, codec, x,
+                                                 capture=capture)
+    t_enc = time.perf_counter() - t0
+    n1, n3 = k1.launches, k3.launches
+    blobs = [b"".join(p) for p in parts]
+    check(n1 == CHUNKS and sess._mixed.dispatches == CHUNKS and n3 == 0,
+          f"adaptive: one K1 launch per feed ({n1}, {sess._mixed.dispatches} "
+          f"dispatches, {CHUNKS} feeds), no K3 launch ({n3})")
+    switches = {kind: [st.mode_switches for st in sess.stats[first::2]]
+                for kind, first in (("MAG", 0), ("ANG", 1))}
+    modes = {kind: sorted({sess._codecs[c].mode
+                           for c in range(first, CHANNELS, 2)})
+             for kind, first in (("MAG", 0), ("ANG", 1))}
+    mixed_feeds = sum(1 for w in widths if len(w) > 1)
+    check(sum(switches["ANG"]) > 0 and mixed_feeds > 0,
+          f"adaptive: mode switches happened ({switches}) and a dispatch "
+          f"held lanes of both widths ({widths})")
+    check("dec" in capture and len(capture["entries"]) == 4,
+          "adaptive: a heterogeneous dispatch was captured for 4 lanes")
+    oracle_lanes, oracle_widths = oracle_check(capture, codec)
+    # the per-channel loop (one static K1 launch per channel a feed)
+    os.environ[_ADAPTIVE_LOOP_ENV] = "1"
+    try:
+        k1.launches = 0
+        t0 = time.perf_counter()
+        loop_parts, loop_sess, _, _ = adaptive_encode(torch, codec, x)
+        t_loop = time.perf_counter() - t0
+    finally:
+        del os.environ[_ADAPTIVE_LOOP_ENV]
+    check(loop_sess._mixed is None and k1.launches == CHANNELS * CHUNKS,
+          f"adaptive loop arm: {k1.launches} K1 launches "
+          f"({CHANNELS * CHUNKS} expected)")
+    check(loop_parts == parts, "adaptive: streams == the loop arm's streams")
+    # the plain mixed scan (backend="torch") on 4 channels, 4 feeds
+    few = list(range(4))
+    t_codec = IdealemCodec(device=dev, adaptive=True, backend="torch",
+                           **CONFIGS["MAG"])
+    t_parts = adaptive_encode(torch, t_codec, x[few], chunks=4)[0]
+    check(all(t_parts[i][:4] == parts[c][:4] for i, c in enumerate(few)),
+          "adaptive: the first 4 feeds of 4 channels == backend=torch")
+    t0 = time.perf_counter()
+    ys = decode_all(torch, codec, blobs)
+    t_dec = time.perf_counter() - t0
+    for c, (blob, y) in enumerate(zip(blobs, ys)):
+        check(y.shape == (SAMPLES,) and bool(np.all(np.isfinite(y))),
+              f"adaptive ch{c}: shape/finite")
+        check(y.tobytes() == decode_stream(blob, backend="numpy").tobytes(),
+              f"adaptive ch{c}: cuda decode == numpy decode")
+    hits = stream_hits(blobs)
+    nb = SAMPLES // codec.block_size
+    res = {"ratio": x.nbytes / sum(len(b) for b in blobs),
+           "hit_rate": hits / (nb * CHANNELS),
+           "encode_MBps": x.nbytes / t_enc / 1e6,
+           "decode_MBps": x.nbytes / t_dec / 1e6, "encode_s": t_enc,
+           "loop_arm_encode_s": t_loop,
+           "selector_s": sel_s, "staging_s": sess._mixed.stage_s,
+           "switches_per_channel": {k: sum(v) / len(v)
+                                    for k, v in switches.items()},
+           "modes_at_end": modes,
+           "feeds_with_both_widths": mixed_feeds,
+           "launches": {"encode_step": n1, "dict_match": n3,
+                        "encode_step_loop_arm": CHANNELS * CHUNKS}}
+    say(f"[adaptive] MAG+ANG {CHANNELS} ch x {SAMPLES} f64: "
+        f"{json.dumps(res)} [{card}]")
+    say(f"[adaptive] checks passed: streams == loop arm; lanes "
+        f"{oracle_lanes} (widths {oracle_widths}) of the first mixed "
+        f"dispatch == numpy oracle; 4 ch x 4 feeds == backend=torch; cuda "
+        f"decode == numpy decode on every channel")
+    prof = {}
+
+    def profiled():
+        _, ps, _, prof["selector_s"] = adaptive_encode(torch, codec, x)
+        prof["staging_s"] = ps._mixed.stage_s
+
+    out = device_profile(torch, profiled)
+    out.update(host_selector_s=prof["selector_s"],
+               host_staging_s=prof["staging_s"])
+    say(f"[profile] adaptive encode: {json.dumps(out)} [{card}]")
+    # the error-bounded run: MAG's bound on every lane, the delta lanes
+    # with the cumulative gate
+    b_codec = IdealemCodec(device=dev, adaptive=True, error_bound=3.0,
+                           **CONFIGS["MAG"])
+    k1.launches = 0
+    b_parts, b_sess, _, _ = adaptive_encode(torch, b_codec, x)
+    n1_b = k1.launches
+    check(n1_b == CHUNKS, f"adaptive bound: one K1 launch per feed ({n1_b})")
+    delta = [c for c in range(CHANNELS) if b_sess._codecs[c].mode == "delta"]
+    check(len(delta) > 0, "adaptive bound: delta lanes (cumulative gate)")
+    b_blobs = [b"".join(p) for p in b_parts]
+    worst = 0.0
+    for c, blob in enumerate(b_blobs):
+        y = b_codec.decode(blob)
+        err = float(np.abs(y - x[c]).max())
+        slop = EB_SLOP * 3.0 + float(np.spacing(np.float32(
+            np.abs(x[c]).max())))
+        check(err <= 3.0 + slop, f"adaptive bound ch{c}: max error {err} "
+              f"within 3.0 + {slop}")
+        worst = max(worst, err)
+    b_hits = stream_hits(b_blobs)
+    say(f"[adaptive] error_bound=3.0: every channel within the bound (max "
+        f"error {worst}); {len(delta)} delta lanes; K1 launches {n1_b}; hit "
+        f"rate {b_hits / (nb * CHANNELS)} (unbounded {hits / (nb * CHANNELS)})"
+        f" [{card}]")
+    return n1 + n1_b, mixed_first_feed(codec, x)
+
+
+def mixed_first_feed(codec, x):
+    """The first feed of ``x`` as a mixed cohort with the even lanes in std
+    (width B) and the odd lanes in delta (width B - 1, +inf padded):
+    ``(payload (C, nb, B) float32, widths (C,), d_crit (C,))``, the shape
+    the adaptive phase dispatches once its ANG lanes have switched."""
+    import dataclasses
+    B, step = codec.block_size, SAMPLES // CHUNKS
+    delta = dataclasses.replace(codec, mode="delta")
+    blocks = x[:, :step - step % B].reshape(CHANNELS, -1, B)
+    pay = np.full(blocks.shape, np.inf, dtype=np.float32)
+    nf = np.empty(CHANNELS, dtype=np.int64)
+    d_crit = np.empty(CHANNELS, dtype=np.float32)
+    for c in range(CHANNELS):
+        cdc = codec if c % 2 == 0 else delta
+        p = cdc._transform(blocks[c])[0]
+        pay[c, :, :p.shape[1]] = p
+        nf[c], d_crit[c] = p.shape[1], cdc.d_crit
+    return pay, nf, d_crit, codec
+
+
 def time_k3(torch, dev, C, D, n, sorted_rows=False):
     """K3 at an encoder step shape: C candidates against D full rows, in
     random order or (as the ops path passes the dictionary) sorted."""
@@ -949,11 +1313,13 @@ def time_k3(torch, dev, C, D, n, sorted_rows=False):
 
 
 def k1_work(torch, xs, is_hit, D, rel_tol, raw=None, bound=None,
-            cumulative=False):
+            cumulative=False, nf=None):
     """(valid rows, gate-passing rows, rows that reach the KS) summed over
     a scan from an empty dictionary: each step's dictionary is replayed
     from the decisions.  With ``bound``, a gate-passing row reaches the KS
-    only if its raw row is within the bound (replayed from ``raw``)."""
+    only if its raw row is within the bound (replayed from ``raw``).  With
+    per-lane widths ``nf`` (C,) (the chan operand's), the gate reads each
+    block's point nf - 1 and the KS rows come back per lane, (C,)."""
     C, nb, n = xs.shape
     dev = xs.device
     miss = (~is_hit).to(torch.int64)
@@ -967,14 +1333,18 @@ def k1_work(torch, xs, is_hit, D, rel_tol, raw=None, bound=None,
                                  device=dev), last[:, :-1]], dim=1)
     valid = last >= 0
     idx = last.clamp(min=0).reshape(C, -1)
+    top = xs[..., -1] if nf is None else torch.gather(
+        xs, 2, (nf - 1)[:, None, None].expand(C, nb, 1))[..., 0]
     dmin = torch.gather(xs[..., 0], 1, idx).reshape(C, nb, D)
-    dmax = torch.gather(xs[..., -1], 1, idx).reshape(C, nb, D)
+    dmax = torch.gather(top, 1, idx).reshape(C, nb, D)
     r = torch.tensor(float(np.float32(rel_tol)), dtype=torch.float32,
                      device=dev)
     t = (dmax - dmin) * r
-    xmin, xmax = xs[..., :1], xs[..., -1:]
+    xmin, xmax = xs[..., :1], top[..., None]
     gate = valid & (xmin >= dmin - t) & (xmin <= dmin + t) \
         & (xmax >= dmax - t) & (xmax <= dmax + t)
+    if nf is not None:
+        return int(valid.sum()), int(gate.sum()), gate.sum((1, 2))
     ks_rows = int(gate.sum())
     if bound is not None:
         ks_rows = 0
@@ -1033,6 +1403,50 @@ def time_k1(torch, dev, codec, pay, error_bound=None):
         "shape": {"C": C, "nb": nb, "n": n, "D": D},
         "valid_rows": rows, "gated_rows": gated, "ks_rows": ks_rows,
         "bytes": nbytes, "ops": ops,
+        "misses": int((~got[0]).sum()), "overwrites": int(got[2].sum()),
+    }
+
+
+def time_k1_mixed(torch, dev, pay, nf, d_crit, codec):
+    """K1 with its chan operand on one mixed feed ``pay`` (C, nb, n) whose
+    lane c holds ``nf[c]`` points and +inf pads (mixed_first_feed), from an
+    empty dictionary, with per-lane ``d_crit``."""
+    from repro_torch.core.encoder import chan_params, init_state
+    from repro_torch.kernels import encode_step as k1
+    C, nb, n = pay.shape
+    D = codec.num_dict
+    xs = torch.sort(torch.from_numpy(pay).to(dev), dim=-1).values
+    valid = torch.ones((C, nb), dtype=torch.bool, device=dev)
+    st = init_state(D, n, channels=C, device=dev)
+    chan = chan_params(nf, d_crit, np.zeros(C, bool), np.zeros(C, bool),
+                       dev).block()
+    kw = dict(d_crit=0.0, rel_tol=codec.rel_tol, chan=chan)
+    ms = cuda_ms(lambda: k1.encode_scan(xs, valid, st, **kw), reps=5,
+                 queued=True)
+    got, gst = k1.encode_scan(xs, valid, st, **kw)
+    (want, wst), plain_ms = cuda_ms_once(
+        lambda: k1.encode_scan_torch(xs, valid, st, **kw))
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip((*got, *gst), (*want, *wst)) if a.numel())
+    nft = torch.from_numpy(nf).to(dev)
+    rows, gated, ks_lane = k1_work(torch, xs, got[0], D, codec.rel_tol,
+                                   nf=nft)
+    nbytes = (xs.numel() * 4 + valid.numel() + chan.numel() * 4
+              + 2 * C * (D * n * 4 + D * 9 + 4) + C * nb * 6)
+    ops = rows * K1_GATE_OPS + int((ks_lane * nft).sum()) \
+        * K1_KS_OPS_PER_SAMPLE
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS["f32"] * 1e3
+    return {
+        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "us_per_block_step": ms / nb * 1e3,
+        "shape": {"C": C, "nb": nb, "n": n, "D": D,
+                  "widths": {str(w): int((nf == w).sum())
+                             for w in np.unique(nf)}},
+        "valid_rows": rows, "gated_rows": gated,
+        "ks_rows": int(ks_lane.sum()), "bytes": nbytes, "ops": ops,
         "misses": int((~got[0]).sum()), "overwrites": int(got[2].sum()),
     }
 
@@ -1314,10 +1728,11 @@ def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
 
 
 def phase_timing(torch, dev, card, first_chunks):
-    """Each kernel at its main-path shapes (13.): returns the timings that
+    """Each kernel at its main-path shapes (14.): returns the timings that
     the kernels JSON line reports, by kernel."""
     from repro_torch.core.decode import _pow2
     k1_main = time_k1(torch, dev, *first_chunks["MAG"])
+    k1_mixed = time_k1_mixed(torch, dev, *first_chunks["adaptive"])
     k1_ang = time_k1(torch, dev, *first_chunks["ANG_delta"])
     ang_codec = first_chunks["ANG_delta"][0]
     k1_ang_eb = time_k1(torch, dev, *first_chunks["ANG_delta"],
@@ -1342,7 +1757,8 @@ def phase_timing(torch, dev, card, first_chunks):
     k3_floor = time_k3(torch, dev, 1, 1, 32, sorted_rows=True)
     k4_serve = time_k4(torch, dev, SERVE_BATCH, SERVE_MAX_SEQ)
     k4_32k = time_k4(torch, dev, SERVE_BATCH, 32768)
-    for name, t in (("K1 MAG", k1_main), ("K1 ANG", k1_ang),
+    for name, t in (("K1 MAG", k1_main), ("K1 mixed", k1_mixed),
+                    ("K1 ANG", k1_ang),
                     ("K1 ANG_delta error bound", k1_ang_eb),
                     ("K1 turnover", k1_turn), ("K2 ANG_delta f64", k2_main),
                     ("K2 ANG_delta shape f32", k2_f32),
@@ -1394,6 +1810,8 @@ def main() -> int:
     launches["encode_step"] += int(n1)
     launches["seq_cumsum"] += int(n2)
     phase_auto(torch, dev, card, first_chunks)
+    n1, first_chunks["adaptive"] = phase_adaptive(torch, dev, card)
+    launches["encode_step"] += n1
     phase_k4(torch, dev)
     launches["flash_decode"] = phase_serve(torch, dev, card)
     timed = phase_timing(torch, dev, card, first_chunks)

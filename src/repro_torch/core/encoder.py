@@ -40,12 +40,14 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.ref import error_gate, minmax_gate
-from .ks import ks_statistic_many
+from .ks import ks_statistic_many, ks_statistic_many_masked
 from .tuning import MeasuredTuner, best_of
 
-__all__ = ["DictState", "EncoderParams", "init_state", "state_from_numpy",
-           "state_to_numpy", "matcher_reference", "resolve_matcher",
-           "encode_decisions", "encode_decisions_batched", "MATCHERS",
+__all__ = ["DictState", "EncoderParams", "ChanParams", "init_state",
+           "state_from_numpy", "state_to_numpy", "matcher_reference",
+           "resolve_matcher", "encode_decisions", "encode_decisions_batched",
+           "encode_decisions_mixed", "chan_params", "repad_state_n",
+           "MATCHERS",
            "load_encode_autotune", "save_encode_autotune",
            "reset_encode_autotune", "encode_autotune_choices",
            "encode_autotune_cached"]
@@ -149,12 +151,14 @@ def matcher_reference(xs_sorted, dict_sorted, dmin, dmax, rel_tol):
     return ks, mm
 
 
-def _decide(state: DictState, xs, ok, valid, raw=None):
+def _decide(state: DictState, xs, ok, valid, raw=None, xmax=None):
     """Second half of a step, shared by every plain step: the lowest
     passing row (``ok`` (C, D)) or the FIFO insert of the sorted candidates
     ``xs`` (C, n) -- and, in the error-bounded mode, of their raw rows
     ``raw`` (C, n) -- at ``count % D``.  A False ``valid`` (C,) step leaves
-    its channel's carry untouched and decides all-zero."""
+    its channel's carry untouched and decides all-zero.  The stored
+    maximum is ``xmax`` (C, 1) where given (the mixed-mode scan's masked
+    maximum), else each candidate's last point."""
     num_dict = state.sorted_blocks.shape[-2]
     ids = torch.arange(num_dict, dtype=torch.int32, device=xs.device)
     best = torch.where(ok, ids, SENTINEL).amin(-1)
@@ -172,7 +176,8 @@ def _decide(state: DictState, xs, ok, valid, raw=None):
         sorted_blocks=torch.where(upd[..., None], xs[:, None, :],
                                   state.sorted_blocks),
         dmin=torch.where(upd, xs[:, :1], state.dmin),
-        dmax=torch.where(upd, xs[:, -1:], state.dmax),
+        dmax=torch.where(upd, xs[:, -1:] if xmax is None else xmax,
+                         state.dmax),
         valid=state.valid | upd,
         count=state.count + do_ins.to(torch.int32),
         raw_blocks=raw_blocks,
@@ -379,3 +384,178 @@ def encode_decisions(blocks: torch.Tensor, *, num_dict: int,
         return tuple(v[0] for v in out)
     (h, s, o), new = out
     return (h[0], s[0], o[0]), DictState(*(f[0] for f in new))
+
+
+# ------------------------------------------- masked mixed-mode (adaptive)
+#
+# Adaptive sessions diverge per channel: payload width (std vs
+# residual/delta), KS threshold (selector-scaled d_crit) and error metric
+# (plain vs cumulative).  The mixed scan pads every payload to the cohort's
+# widest with +inf, masks each channel's tail columns, and carries the
+# formerly static parameters per channel (ChanParams): one dispatch per
+# feed for the whole cohort, with the decisions and carry of the reference
+# package's ``encode_decisions_mixed``.
+
+class ChanParams(NamedTuple):
+    """Per-channel parameters of the mixed-mode scan, (C,) tensors built
+    by :func:`chan_params` so their float rounding is the reference's."""
+
+    n: torch.Tensor       # int64 logical payload width (<= padded width)
+    nf: torch.Tensor      # float32 float(n): the reference arm's divisor
+    inv_n: torch.Tensor   # float32 f32(1/n): K1's ECDF multiplier
+    d_crit: torch.Tensor  # float32 per-channel threshold (selector-scaled)
+    err_cum: torch.Tensor  # bool cumulative error metric (delta mode)
+    eb_on: torch.Tensor   # bool error-bound gate armed for this channel
+
+    def block(self) -> torch.Tensor:
+        """K1's (C, 8) float32 ``chan`` operand (``CHAN_*`` layout)."""
+        z = torch.zeros_like(self.nf)
+        return torch.stack([self.nf, self.inv_n, self.d_crit,
+                            self.err_cum.float(), self.eb_on.float(),
+                            z, z, z], dim=1)
+
+
+def chan_params(n_valid, d_crit, err_cum, eb_on, device) -> ChanParams:
+    """ChanParams from host values: ``inv_n`` is ``1/n`` in float64
+    rounded to float32, as the static kernel's operand; ``n`` is at least
+    1 (an inactive lane's guard)."""
+    n = np.maximum(np.asarray(n_valid, np.int64), 1)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return ChanParams(
+        n=t(n, torch.int64), nf=t(n.astype(np.float32), torch.float32),
+        inv_n=t((1.0 / n.astype(np.float64)).astype(np.float32),
+                torch.float32),
+        d_crit=t(np.asarray(d_crit, np.float32), torch.float32),
+        err_cum=t(err_cum, torch.bool), eb_on=t(eb_on, torch.bool))
+
+
+def repad_state_n(state: DictState, n_new: int) -> DictState:
+    """Re-pad the trailing payload-width axis of a (batched) mixed carry
+    when the cohort's widest live width changes.  Grown columns are
+    ``+inf`` (the pad value of inserted rows); shrinking slices pad columns
+    off, which is sound because the session resets a lane before its width
+    changes."""
+    n_old = state.sorted_blocks.shape[-1]
+    if n_new == n_old:
+        return state
+
+    def fit(a):
+        if n_new > n_old:
+            pad = a.new_full(a.shape[:-1] + (n_new - n_old,), float("inf"))
+            return torch.cat([a, pad], dim=-1)
+        return a[..., :n_new].contiguous()
+
+    raw = state.raw_blocks
+    if raw.shape[-2]:
+        raw = fit(raw)
+    return state._replace(sorted_blocks=fit(state.sorted_blocks),
+                          raw_blocks=raw)
+
+
+def _step_mixed(params: EncoderParams, chan: ChanParams, state: DictState,
+                xs, valid, raw):
+    """Masked variant of the plain step for C channels of padded width:
+    every width-dependent quantity uses the channel's logical width with
+    the +inf tail columns masked out, and the threshold and error metric
+    come from ``chan``."""
+    n_max = xs.shape[-1]
+    col_ok = torch.arange(n_max, device=xs.device) < chan.n[:, None]
+    xmax = torch.where(col_ok, xs, float("-inf")).amax(-1, keepdim=True)
+    ok = state.valid
+    if params.use_minmax:
+        r = torch.tensor(params.rel_tol, dtype=state.dmin.dtype)
+        ok = ok & minmax_gate(xs[:, :1], xmax, state.dmin, state.dmax, r)
+    if params.use_ks:
+        ks = ks_statistic_many_masked(xs, state.sorted_blocks, chan.nf,
+                                      col_ok)
+        ok = ok & (ks <= chan.d_crit[:, None])
+    if params.error_bound is None:
+        return _decide(state, xs, ok, valid, xmax=xmax)
+    err_ok = error_gate(raw, state.raw_blocks, params.error_bound,
+                        chan.err_cum, col_ok)
+    ok = ok & (err_ok | ~chan.eb_on[:, None])
+    return _decide(state, xs, ok, valid, raw, xmax)
+
+
+def _resolve_mixed_matcher(matcher) -> str:
+    """Only the reference and fused matchers have masked (width-aware)
+    variants; ``"ops"``, ``"auto"`` and anything else take the session's
+    per-channel loop instead."""
+    if matcher is None or matcher == "reference":
+        return "reference"
+    if matcher == "fused":
+        return "fused"
+    raise ValueError(
+        f"the mixed-mode scan has masked variants of the reference and "
+        f"fused matchers only; got {matcher!r}")
+
+
+def encode_decisions_mixed(
+    blocks_cn: torch.Tensor,
+    *,
+    num_dict: int,
+    n_valid,
+    d_crit,
+    rel_tol: float = 0.1,
+    use_minmax: bool = True,
+    use_ks: bool = True,
+    error_bound: Optional[float] = None,
+    error_cumulative=None,
+    eb_on=None,
+    matcher: Optional[str] = None,
+    state: Optional[DictState] = None,
+    valid: Optional[torch.Tensor] = None,
+):
+    """Batched mixed-mode encoder for adaptive heterogeneous channels.
+
+    ``blocks_cn`` (C, nb, n_max): per-channel payloads padded on the width
+    axis with ``+inf`` to the cohort's widest and on the block axis via
+    ``valid`` (C, nb).  ``n_valid`` (C,) gives each channel's logical
+    width, ``d_crit`` (C,) its threshold, ``error_cumulative`` (C,) its
+    error metric under the shared ``error_bound`` and ``eb_on`` (C,)
+    whether its bound is armed (host arrays).  ``matcher``: ``None`` or
+    ``"reference"`` (the plain step loop, the reference package's
+    ``"jax"`` arm) or ``"fused"`` (one K1 launch with its ``chan`` operand,
+    the ``"pallas"`` arm).  Return forms as
+    :func:`encode_decisions_batched`; the carry's width axis follows the
+    cohort's widest -- repad with :func:`repad_state_n` when it changes.
+    """
+    C, nb, n = blocks_cn.shape
+    dev = blocks_cn.device
+    m = _resolve_mixed_matcher(matcher)
+    return_state = state is not None
+    if state is None:
+        state = init_state(num_dict, n, dtype=blocks_cn.dtype, channels=C,
+                           device=dev, raw=error_bound is not None)
+    if error_bound is not None and state.raw_blocks.shape[-2] == 0:
+        raise ValueError("error_bound requires a state created with "
+                         "init_state(..., raw=True)")
+    if valid is None:
+        valid = torch.ones((C, nb), dtype=torch.bool, device=dev)
+    chan = chan_params(
+        n_valid, d_crit,
+        np.zeros(C, bool) if error_cumulative is None else error_cumulative,
+        np.ones(C, bool) if eb_on is None else eb_on, dev)
+    xs_all = torch.sort(blocks_cn, dim=-1).values  # +inf pads sort last
+    eb = None if error_bound is None else float(error_bound)
+    if m == "fused":
+        from ..kernels.encode_step import encode_scan
+        out, state = encode_scan(xs_all, valid, state, d_crit=0.0,
+                                 rel_tol=rel_tol, use_minmax=use_minmax,
+                                 use_ks=use_ks, raw=blocks_cn,
+                                 error_bound=eb, chan=chan.block())
+    else:
+        params = EncoderParams(0.0, float(rel_tol), bool(use_minmax),
+                               bool(use_ks), error_bound=eb)
+        acc = ([], [], [])
+        for b in range(nb):
+            state, dec = _step_mixed(params, chan, state, xs_all[:, b],
+                                     valid[:, b], blocks_cn[:, b])
+            for a, v in zip(acc, dec):
+                a.append(v)
+        out = (tuple(torch.stack(a, dim=1) for a in acc) if nb
+               else _empty_decisions(C, dev))
+    return (out, state) if return_state else out

@@ -27,6 +27,10 @@ Error-bounded mode (``error_bound=t`` or ``error_bound_rel``): every
 decoded sample differs from its original by at most ``t`` (circular
 distance when ``value_range`` wraps); would-be hits that break the bound
 become misses and the decode skips the hit permutation.
+
+Adaptive mode selection (``adaptive=True``, tuned by ``selector``) is
+streaming-only: a session switches each channel's transform and threshold
+at segment restarts (``core.session``, ``core.select``).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from . import stream as stream_mod
 from .decode import BACKENDS as DECODE_BACKENDS
 from .encoder import MATCHERS
 from .ks import critical_distance
+from .select import SelectorConfig
 from .session import IdealemSession
 from .stream import MODE_DELTA, MODE_RESIDUAL, MODE_STD
 from .transforms import np_wrap_centered
@@ -79,8 +84,10 @@ class IdealemCodec:
     # resolved to an absolute error_bound here.
     error_bound: Optional[float] = None
     error_bound_rel: Optional[float] = None
-    # not ported yet: set only to be told where it stands
+    # adaptive per-channel mode selection (core.select): streaming-only --
+    # sessions switch transform/threshold at segment restarts
     adaptive: bool = False
+    selector: Optional[SelectorConfig] = None
     d_crit: float = field(init=False)
     torch_device: torch.device = field(init=False)
 
@@ -96,9 +103,6 @@ class IdealemCodec:
                 self.matcher not in MATCHERS + ("auto",):
             raise ValueError(f"matcher must be None or one of "
                              f"{MATCHERS + ('auto',)}")
-        if self.adaptive:
-            raise ValueError("adaptive mode selection is not ported yet "
-                             "(ROADMAP Queue 1 item 6)")
         if not (1 <= self.num_dict <= 255):
             raise ValueError("num_dict must be in [1, 255]")
         if not (1 <= self.max_count <= 255):
@@ -150,6 +154,9 @@ class IdealemCodec:
     def encode(self, x: np.ndarray) -> bytes:
         """One-shot encode: a single-feed session assembled as one segment."""
         x = np.ascontiguousarray(x)
+        if self.adaptive:
+            raise ValueError("adaptive codecs are streaming-only; use "
+                             "codec.session() and feed chunks")
         if x.ndim != 1:
             raise ValueError(
                 "IdealemCodec.encode compresses 1-D arrays; use "

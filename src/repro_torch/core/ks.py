@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["kolmogorov_sf", "ks_pvalue", "ks_statistic_many",
+           "ks_statistic_many_masked", "searchsorted_right",
            "critical_distance"]
 
 _SERIES_TERMS = 40
@@ -57,6 +58,50 @@ def ks_pvalue(d, n1: int, n2: int) -> torch.Tensor:
     return kolmogorov_sf(np.sqrt(en) * d)
 
 
+def _sort_key(x: torch.Tensor) -> torch.Tensor:
+    """Integer keys ordered as the reference's sort comparator orders
+    floats: -0.0 equals +0.0, every NaN is one value above +inf."""
+    itype = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    x = torch.where(x == 0, torch.zeros_like(x), x)
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+    b = x.view(itype)
+    return b ^ ((b >> (8 * x.element_size() - 1))
+                & torch.iinfo(itype).max)
+
+
+def searchsorted_right(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``jnp.searchsorted(a, v, side="right")`` along the last axis of
+    ``a`` (..., m) for queries ``v`` (..., k) with the same leading axes:
+    the reference's binary search (``method="scan"``) probe for probe, in
+    its sort order (NaN above +inf, -0.0 == +0.0).  On sorted rows that is
+    the count of points ``<=`` each query; on a row that is not sorted in
+    that order (a NaN before a grown ``+inf`` pad) it is whatever the
+    reference's probes give, which ``torch.searchsorted`` would not."""
+    m = a.shape[-1]
+    dt = torch.promote_types(a.dtype, v.dtype)
+    ka, kv = _sort_key(a.to(dt)), _sort_key(v.to(dt))
+    low = torch.zeros(kv.shape, dtype=torch.int64, device=v.device)
+    high = torch.full(kv.shape, m, dtype=torch.int64, device=v.device)
+    for _ in range(int(np.ceil(np.log2(m + 1)))):
+        mid = (low + high) // 2
+        left = kv < torch.gather(ka, -1, mid.clamp(max=m - 1))
+        low = torch.where(left, low, mid)
+        high = torch.where(left, mid, high)
+    return high
+
+
+def _ecdf_gaps(xs, ys, div):
+    """The two ECDF gap tables of sorted candidates ``xs`` (..., D, m)
+    against rows ``ys`` (..., D, m) with divisor ``div``: at the
+    candidate's points and at the rows' points."""
+    m = xs.shape[-1]
+    f32 = torch.float32
+    pos = torch.arange(1, m + 1, dtype=f32, device=xs.device)
+    d1 = torch.abs(pos / div - searchsorted_right(ys, xs).to(f32) / div)
+    d2 = torch.abs(searchsorted_right(xs, ys).to(f32) / div - pos / div)
+    return d1, d2
+
+
 def ks_statistic_many(xs_sorted: torch.Tensor,
                       dict_sorted: torch.Tensor) -> torch.Tensor:
     """KS statistic of sorted candidates against stacks of sorted blocks.
@@ -64,22 +109,29 @@ def ks_statistic_many(xs_sorted: torch.Tensor,
     ``xs_sorted`` (..., n) and ``dict_sorted`` (..., D, n) -> (..., D) in
     float32: the maximum ECDF gap evaluated at every sample point of both
     samples (``searchsorted(side="right")`` counts divided by n), the same
-    arithmetic as the reference package's ``ks_statistic_many``.
+    arithmetic as the reference package's ``ks_statistic_many``; NaNs
+    count in the reference's sort order (:func:`searchsorted_right`).
     """
-    n1 = xs_sorted.shape[-1]
-    n2 = dict_sorted.shape[-1]
-    xs = xs_sorted.unsqueeze(-2).expand(
-        *dict_sorted.shape[:-1], n1).contiguous()
-    ys = dict_sorted.contiguous()
-    f32 = torch.float32
-    dev = xs.device
-    fx_at_x = torch.arange(1, n1 + 1, dtype=f32, device=dev) / n1
-    fy_at_x = torch.searchsorted(ys, xs, right=True).to(f32) / n2
-    d1 = torch.amax(torch.abs(fx_at_x - fy_at_x), dim=-1)
-    fy_at_y = torch.arange(1, n2 + 1, dtype=f32, device=dev) / n2
-    fx_at_y = torch.searchsorted(xs, ys, right=True).to(f32) / n1
-    d2 = torch.amax(torch.abs(fx_at_y - fy_at_y), dim=-1)
-    return torch.maximum(d1, d2)
+    xs = xs_sorted.unsqueeze(-2).expand(dict_sorted.shape).contiguous()
+    d1, d2 = _ecdf_gaps(xs, dict_sorted.contiguous(), xs.shape[-1])
+    return torch.maximum(d1.amax(-1), d2.amax(-1))
+
+
+def ks_statistic_many_masked(xs_sorted: torch.Tensor,
+                             dict_sorted: torch.Tensor, nf: torch.Tensor,
+                             col_ok: torch.Tensor) -> torch.Tensor:
+    """:func:`ks_statistic_many` for the mixed-mode (adaptive) scan:
+    candidates (C, m) and rows (C, D, m) padded to a common width with
+    ``+inf``; ``nf`` (C,) float32 is each channel's logical width and
+    ``col_ok`` (C, m) its real columns.  The counts run over all m columns,
+    are divided by ``nf`` and the gaps of the pad columns are zero-filled
+    before the max, as in the reference's ``ks_statistic_many_masked``."""
+    xs = xs_sorted.unsqueeze(-2).expand(dict_sorted.shape).contiguous()
+    d1, d2 = _ecdf_gaps(xs, dict_sorted.contiguous(), nf[:, None, None])
+    ok = col_ok[:, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=xs.device)
+    return torch.maximum(torch.where(ok, d1, zero).amax(-1),
+                         torch.where(ok, d2, zero).amax(-1))
 
 
 def critical_distance(alpha: float, n1: int, n2: int) -> float:

@@ -18,7 +18,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 __all__ = ["ks_statistic_np", "ks_pvalue_np", "NpDictState", "np_init_state",
-           "encode_decisions_np"]
+           "encode_decisions_np", "encode_decisions_mixed_np"]
 
 
 def ks_statistic_np(x: np.ndarray, y: np.ndarray) -> float:
@@ -124,3 +124,58 @@ def encode_decisions_np(
             state.count += 1
     out = (is_hit, slot, overwrite)
     return (out, state) if return_state else out
+
+
+def encode_decisions_mixed_np(
+    blocks_cn: np.ndarray,
+    *,
+    num_dict: int,
+    n_valid,
+    d_crit,
+    rel_tol: float = 0.1,
+    use_minmax: bool = True,
+    use_ks: bool = True,
+    error_bound: Optional[float] = None,
+    error_cumulative=None,
+    eb_on=None,
+    states: Optional[List[Optional[NpDictState]]] = None,
+    valid: Optional[np.ndarray] = None,
+):
+    """Host oracle for ``encoder.encode_decisions_mixed``: slices each
+    channel's real rows (``valid`` (C, nb) mask) and columns (logical
+    width ``n_valid[ci]``, the rest are +inf pads) out of the padded
+    cohort and runs the early-exit walk per channel with that channel's
+    ``d_crit``/``error_cumulative``/``eb_on``.
+
+    One-shot returns the (C, nb) decision triple with padded rows zeroed;
+    with ``states`` (a list of per-channel ``NpDictState`` or ``None``
+    entries, filled and mutated in place) it returns the resumable
+    ``((is_hit, slot, overwrite), states)`` form.
+    """
+    blocks_cn = np.asarray(blocks_cn)
+    C, nb = blocks_cn.shape[:2]
+    return_state = states is not None
+    if states is None:
+        states = [None] * C
+    n_valid = np.asarray(n_valid)
+    d_crit = np.asarray(d_crit)
+    is_hit = np.zeros((C, nb), dtype=bool)
+    slot = np.zeros((C, nb), dtype=np.int32)
+    overwrite = np.zeros((C, nb), dtype=bool)
+    for ci in range(C):
+        rows = (np.ones(nb, dtype=bool) if valid is None
+                else np.asarray(valid)[ci])
+        pj = blocks_cn[ci][rows, : int(n_valid[ci])]
+        if states[ci] is None:
+            states[ci] = np_init_state(num_dict)
+        ec = (False if error_cumulative is None
+              else bool(np.asarray(error_cumulative)[ci]))
+        ebo = True if eb_on is None else bool(np.asarray(eb_on)[ci])
+        (h, s, o), _ = encode_decisions_np(
+            pj, num_dict=num_dict, d_crit=float(d_crit[ci]),
+            rel_tol=rel_tol, use_minmax=use_minmax, use_ks=use_ks,
+            error_bound=error_bound if ebo else None,
+            error_cumulative=ec, state=states[ci])
+        is_hit[ci][rows], slot[ci][rows], overwrite[ci][rows] = h, s, o
+    out = (is_hit, slot, overwrite)
+    return (out, states) if return_state else out

@@ -23,22 +23,159 @@ assembles one classic single-segment stream; ``IdealemCodec.encode`` is a
 thin wrapper over this mode.  ``channels=C`` encodes C independent streams
 in one batched scan; ``feed`` then takes ``(C, m)`` chunks and returns one
 segment per channel.
+
+Adaptive codecs (``IdealemCodec(adaptive=True)``) carry one
+:class:`~repro_torch.core.select.ChannelSelector` per channel: at a feed
+boundary a channel may switch its transform (std/residual/delta) and its
+d_crit scale, which resets its dictionary and restarts its segment chain.
+The channels' payloads then differ in width, threshold and error metric;
+a :class:`MixedCohort` pads them into one batch and decides a feed in one
+mixed-mode scan (on ``backend="cuda"`` one launch of K1 with its ``chan``
+operand).  Matchers without a masked variant (``"ops"``, ``"auto"``) take
+a per-channel loop, as does every session while the environment variable
+``REPRO_TORCH_ADAPTIVE_LOOP`` is set (the oracle arm for tests).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import os
+import time
+from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import stream as stream_mod
 from .stream import StreamHeader
 
 if TYPE_CHECKING:  # pragma: no cover
     from .idealem import IdealemCodec
 
-__all__ = ["IdealemSession", "PreparedChunk", "SessionStats"]
+__all__ = ["IdealemSession", "MixedCohort", "PreparedChunk", "SessionStats"]
+
+# Forces the per-channel loop in adaptive sessions (the port's own variable:
+# the reference package's REPRO_ADAPTIVE_LOOP is not read).
+_ADAPTIVE_LOOP_ENV = "REPRO_TORCH_ADAPTIVE_LOOP"
+
+
+def _mixed_matcher_name(codec) -> Optional[str]:
+    """The mixed scan's matcher for a codec: ``"fused"`` (the ``"cuda"``
+    backend's default) or ``"reference"`` (``"torch"``'s), or ``None``
+    when only the per-channel loop can honour it (``"ops"``/``"auto"``
+    have no masked variant)."""
+    m = codec.matcher
+    if codec.backend == "cuda":
+        m = m or "fused"
+    if m is None or m == "reference":
+        return "reference"
+    return "fused" if m == "fused" else None
+
+
+class MixedCohort:
+    """Shared batched carry and dispatcher of an adaptive session's
+    channels.
+
+    Owns one ``(capacity, D, n_max)`` ``DictState`` whose lanes stay
+    logically per channel: payload widths are padded to the widest live
+    lane with ``+inf`` (:func:`~repro_torch.core.encoder.repad_state_n`
+    follows the widest as lanes change), tail columns are masked per lane
+    inside the scan, and a selector switch resets a lane in place
+    (:meth:`reset_lane`).  :meth:`decide` stages the padded batch on the
+    host and issues one mixed-mode scan and one host sync per feed however
+    the lanes differ in mode, width, threshold or error metric;
+    ``dispatches`` counts them and ``stage_s`` sums the host seconds spent
+    staging the batches (padding them and copying them to the device).
+    """
+
+    def __init__(self, num_dict: int, capacity: int, *, rel_tol: float,
+                 use_minmax: bool = True, use_ks: bool = True,
+                 error_bound: Optional[float] = None,
+                 matcher: Optional[str] = None, device=None):
+        self.num_dict = int(num_dict)
+        self.capacity = int(capacity)
+        self.rel_tol = float(rel_tol)
+        self.use_minmax = use_minmax
+        self.use_ks = use_ks
+        self.error_bound = None if error_bound is None else float(error_bound)
+        self.matcher = matcher
+        self.device = resolve_device(device)
+        self.state = None  # batched DictState, width padded to _n_max
+        self._n_max = 0
+        self.lane_n = np.zeros(self.capacity, dtype=np.int64)
+        self.dispatches = 0
+        self.stage_s = 0.0
+
+    def reset_lane(self, lane: int) -> None:
+        """Drop one lane's dictionary (selector switch): its rows turn
+        ``valid=False`` and its FIFO count rewinds; every other lane's
+        carry is untouched.  Updates the cohort's own carry in place."""
+        self.lane_n[lane] = 0
+        if self.state is not None:
+            self.state.valid[lane] = False
+            self.state.count[lane] = 0
+
+    def grow(self, capacity: int) -> None:
+        """Extend the lane axis; new lanes start empty."""
+        add = int(capacity) - self.capacity
+        if add <= 0:
+            return
+        self.lane_n = np.concatenate(
+            [self.lane_n, np.zeros(add, dtype=np.int64)])
+        if self.state is not None:
+            self.state = type(self.state)(*(
+                torch.cat([f, f.new_zeros((add,) + f.shape[1:])])
+                for f in self.state))
+        self.capacity = int(capacity)
+
+    def decide(self, entries):
+        """One mixed-mode scan over ``entries``: a list of ``(lane, payload
+        (nb_i, n_i), d_crit, err_cum, eb_on)`` tuples.  Payload widths are
+        padded to the cohort's widest with +inf (as float32, on the host)
+        and block counts to the most of any entry through the valid mask.
+        Returns ``{lane: (is_hit, slot, overwrite)}`` cut back to each
+        entry's block count, after the one host sync."""
+        from .encoder import encode_decisions_mixed, init_state, repad_state_n
+
+        t0 = time.perf_counter()
+        for lane, p, *_ in entries:
+            self.lane_n[lane] = p.shape[-1]
+        n_max = int(self.lane_n.max())
+        nb = max(p.shape[0] for _, p, *_ in entries)
+        batch = np.full((self.capacity, nb, n_max), np.inf, dtype=np.float32)
+        valid = np.zeros((self.capacity, nb), dtype=bool)
+        d_crit = np.ones(self.capacity, dtype=np.float32)
+        err_cum = np.zeros(self.capacity, dtype=bool)
+        eb_on = np.zeros(self.capacity, dtype=bool)
+        for lane, p, dc, ec, ebo in entries:
+            nb_i, n_i = p.shape
+            batch[lane, :nb_i, :n_i] = p
+            valid[lane, :nb_i] = True
+            d_crit[lane] = dc
+            err_cum[lane] = ec
+            eb_on[lane] = ebo
+        eb = self.error_bound
+        if self.state is None:
+            self.state = init_state(self.num_dict, n_max,
+                                    channels=self.capacity,
+                                    device=self.device, raw=eb is not None)
+        elif n_max != self._n_max:
+            self.state = repad_state_n(self.state, n_max)
+        self._n_max = n_max
+        batch = torch.as_tensor(batch, device=self.device)
+        valid = torch.as_tensor(valid, device=self.device)
+        self.stage_s += time.perf_counter() - t0
+        (h, s, o), self.state = encode_decisions_mixed(
+            batch, num_dict=self.num_dict, n_valid=np.maximum(self.lane_n, 1),
+            d_crit=d_crit, rel_tol=self.rel_tol, use_minmax=self.use_minmax,
+            use_ks=self.use_ks, error_bound=eb, error_cumulative=err_cum,
+            eb_on=eb_on, matcher=self.matcher, state=self.state, valid=valid)
+        self.dispatches += 1
+        h, s, o = (v.cpu().numpy() for v in (h, s, o))  # the one sync
+        return {lane: (h[lane, :p.shape[0]], s[lane, :p.shape[0]],
+                       o[lane, :p.shape[0]])
+                for lane, p, *_ in entries}
 
 
 class PreparedChunk(NamedTuple):
@@ -46,7 +183,8 @@ class PreparedChunk(NamedTuple):
     (tails already re-buffered) with their transforms applied."""
 
     blocks: np.ndarray            # (C, nb, B) raw values
-    payloads: np.ndarray          # (C, nb, n_lem) transformed
+    payloads: np.ndarray          # (C, nb, n_lem) transformed; adaptive
+                                  # sessions: a list of (nb, n_c) arrays
     bases: List[Optional[np.ndarray]]  # per channel, (nb,) or None (std)
     nb: int
 
@@ -60,6 +198,9 @@ class SessionStats:
     segments: int = 0
     bytes_in: int = 0
     bytes_out: int = 0
+    # adaptive sessions: accepted selector switches and their events
+    mode_switches: int = 0
+    events: List[dict] = field(default_factory=list)
 
     @property
     def hit_rate(self) -> float:
@@ -71,6 +212,8 @@ class SessionStats:
             "hit_rate": self.hit_rate, "segments": self.segments,
             "bytes_in": self.bytes_in, "bytes_out": self.bytes_out,
             "ratio": self.bytes_in / max(self.bytes_out, 1),
+            "mode_switches": self.mode_switches,
+            "events": list(self.events),
         }
 
 
@@ -105,6 +248,26 @@ class IdealemSession:
         self._stats = [SessionStats() for _ in range(C)]
         self._dev_state = None   # batched DictState (torch / cuda backends)
         self._np_states = None   # list[NpDictState] (numpy backend)
+        # adaptive sessions: each channel's current codec variant and
+        # quantized d_crit; a switch resets the channel's dictionary and
+        # restarts its segment chain
+        self.adaptive = bool(codec.adaptive)
+        self._codecs = [codec] * C
+        self._d_crit = [float(codec.d_crit)] * C
+        self._selectors = None
+        self._adapt_states = None  # per-channel DictState (the loop arm)
+        self._mixed = None            # MixedCohort (the batched arm)
+        self._mixed_disabled = False  # the matcher has no masked variant
+        if self.adaptive:
+            if not emit_segments:
+                raise ValueError(
+                    "adaptive sessions require emit_segments=True (mode "
+                    "switches live at segment restarts)")
+            from .select import ChannelSelector
+            self._selectors = [
+                ChannelSelector(codec.block_size, mode=codec.mode,
+                                config=codec.selector) for _ in range(C)]
+            self._adapt_states = [None] * C
         # host-side accumulation for emit_segments=False (one-shot assembly)
         self._buf = [
             {"raw": [], "payload": [], "bases": [], "hit": [], "slot": [],
@@ -151,9 +314,121 @@ class IdealemSession:
         h, s, o = (v.cpu().numpy() for v in (h, s, o))
         return [(h[ci], s[ci], o[ci]) for ci in range(self._C)]
 
+    # ------------------------------------------------- adaptive mode selection
+    def _channel_kw(self, ci: int) -> dict:
+        """Encode parameters of channel ``ci`` under its current codec
+        variant (adaptive sessions)."""
+        cdc0, cdc = self.codec, self._codecs[ci]
+        kw = dict(num_dict=cdc0.num_dict, d_crit=float(self._d_crit[ci]),
+                  rel_tol=float(cdc0.rel_tol), use_minmax=cdc0.use_minmax,
+                  use_ks=cdc0.use_ks)
+        if cdc.error_bound is not None:
+            kw["error_bound"] = float(cdc.error_bound)
+            kw["error_cumulative"] = cdc.mode == "delta"
+        return kw
+
+    def _decide_adaptive(self, payloads):
+        """Per-channel decisions under per-channel codec variants: one
+        mixed-mode scan when the matcher has a masked variant (one dispatch
+        and one host sync per feed), else the per-channel loop."""
+        cdc0 = self.codec
+        if cdc0.backend == "numpy":
+            from .npref import encode_decisions_np, np_init_state
+            if self._np_states is None:
+                self._np_states = [np_init_state(cdc0.num_dict)
+                                   for _ in range(self._C)]
+            return [encode_decisions_np(payloads[ci],
+                                        state=self._np_states[ci],
+                                        **self._channel_kw(ci))[0]
+                    for ci in range(self._C)]
+        if self._mixed is None and not self._mixed_disabled:
+            m = (None if os.environ.get(_ADAPTIVE_LOOP_ENV)
+                 else _mixed_matcher_name(cdc0))
+            if m is None:
+                self._mixed_disabled = True
+            else:
+                self._mixed = MixedCohort(
+                    cdc0.num_dict, self._C, rel_tol=float(cdc0.rel_tol),
+                    use_minmax=cdc0.use_minmax, use_ks=cdc0.use_ks,
+                    error_bound=cdc0.error_bound, matcher=m,
+                    device=cdc0.torch_device)
+        if self._mixed is None:
+            return self._decide_adaptive_loop(payloads)
+        dec = self._mixed.decide([
+            (ci, np.asarray(payloads[ci]), float(self._d_crit[ci]),
+             self._codecs[ci].mode == "delta",
+             self._codecs[ci].error_bound is not None)
+            for ci in range(self._C)])
+        return [dec[ci] for ci in range(self._C)]
+
+    def _decide_adaptive_loop(self, payloads):
+        """The per-channel arm: one scan per channel (on ``"cuda"`` one
+        static K1 launch each, or the codec's matcher), all issued before
+        the one host sync."""
+        from .encoder import encode_decisions, init_state
+        cdc0 = self.codec
+        outs = []
+        for ci in range(self._C):
+            kw = self._channel_kw(ci)
+            kw["matcher"] = cdc0.matcher or (
+                "fused" if cdc0.backend == "cuda" else None)
+            pt = torch.as_tensor(payloads[ci], dtype=torch.float32,
+                                 device=cdc0.torch_device)
+            if self._adapt_states[ci] is None:
+                self._adapt_states[ci] = init_state(
+                    cdc0.num_dict, pt.shape[-1], device=pt.device,
+                    raw="error_bound" in kw)
+            out, self._adapt_states[ci] = encode_decisions(
+                pt, state=self._adapt_states[ci], **kw)
+            outs.append(out)
+        return [tuple(v.cpu().numpy() for v in out) for out in outs]
+
+    def _apply_switch(self, ci: int, ev) -> None:
+        """Commit an accepted selector switch: swap the channel's codec
+        variant, scale its threshold, drop its dictionary and restart its
+        segment chain (the next segment is ``cont=False``, so decoders take
+        it as a fresh section)."""
+        cdc = self.codec if ev.new_mode == self.codec.mode \
+            else dataclasses.replace(self.codec, mode=ev.new_mode)
+        self._codecs[ci] = cdc
+        self._d_crit[ci] = float(cdc.d_crit) * float(ev.new_scale)
+        self._started[ci] = False
+        if self._np_states is not None:
+            from .npref import np_init_state
+            self._np_states[ci] = np_init_state(self.codec.num_dict)
+        self._adapt_states[ci] = None
+        if self._mixed is not None:
+            self._mixed.reset_lane(ci)
+        st = self._stats[ci]
+        st.mode_switches += 1
+        st.events.append(ev.as_dict())
+
+    def _feed_adaptive(self, chunk):
+        if self._finished:
+            raise RuntimeError("session already finished")
+        arr = np.asarray(chunk)
+        arr2 = arr[None, :] if self.channels is None else arr
+        if arr2.ndim != 2 or arr2.shape[0] != self._C:
+            want = "1-D" if self.channels is None else f"(C={self._C}, m)"
+            raise ValueError(f"expected {want} chunk, got {arr.shape}")
+        # switches apply at the feed boundary, from the statistics of the
+        # previous feeds: a segment never changes transform mid-flight
+        for ci in range(self._C):
+            ev = self._selectors[ci].decide(self._stats[ci].blocks)
+            if ev is not None:
+                self._apply_switch(ci, ev)
+        for ci in range(self._C):
+            self._selectors[ci].observe(arr2[ci])
+        prep = self.prepare(chunk)
+        if prep is None:
+            empty = [b""] * self._C
+            return empty[0] if self.channels is None else empty
+        outs = self.commit(prep, self._decide_adaptive(prep.payloads))
+        return outs[0] if self.channels is None else outs
+
     def _make_header(self, nb: int, tail: np.ndarray, more: bool,
                      ci: int) -> StreamHeader:
-        cdc = self.codec
+        cdc = self._codecs[ci]
         return StreamHeader(
             mode=cdc.mode_id, block_size=cdc.block_size,
             num_dict=cdc.num_dict, max_count=cdc.max_count,
@@ -171,8 +446,8 @@ class IdealemSession:
         st.segments += 1
         return seg
 
-    def _empty(self):
-        cdc = self.codec
+    def _empty(self, ci: int):
+        cdc = self._codecs[ci]
         raw = np.zeros((0, cdc.block_size), dtype=self.dtype)
         payload = np.zeros((0, cdc._lem_n()), dtype=self.dtype)
         bases = None if cdc.mode == "std" else np.zeros(0, self.dtype)
@@ -209,10 +484,13 @@ class IdealemSession:
         blocks = np.stack([j[: nb * B].reshape(nb, B) for j in joined])
         payloads, bases = [], []
         for ci in range(self._C):
-            p, b = self.codec._transform(blocks[ci])
+            p, b = self._codecs[ci]._transform(blocks[ci])
             payloads.append(p)
             bases.append(b)
-        return PreparedChunk(blocks, np.stack(payloads), bases, nb)
+        # adaptive channels may differ in payload width, so they stay a
+        # ragged list; the static path stacks them for the batched scan
+        stacked = payloads if self.adaptive else np.stack(payloads)
+        return PreparedChunk(blocks, stacked, bases, nb)
 
     def commit(self, prep: PreparedChunk, decisions) -> List[bytes]:
         """Apply per-channel decision triples for a prepared chunk: update
@@ -246,6 +524,8 @@ class IdealemSession:
         ``bytes`` for single-channel sessions, a list for ``channels=C``).
         Samples not filling a block are buffered for the next feed/finish;
         an empty ``bytes`` means no full block completed yet."""
+        if self.adaptive:
+            return self._feed_adaptive(chunk)
         prep = self.prepare(chunk)
         if prep is None:
             empty = [b""] * self._C
@@ -264,7 +544,7 @@ class IdealemSession:
         for ci in range(self._C):
             buf = self._buf[ci]
             if self.emit_segments or not buf["raw"]:
-                raw, payload, bases, hit, slot, ovw = self._empty()
+                raw, payload, bases, hit, slot, ovw = self._empty(ci)
             else:
                 raw = np.concatenate(buf["raw"])
                 payload = np.concatenate(buf["payload"])

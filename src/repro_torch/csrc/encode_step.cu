@@ -1,7 +1,7 @@
 // K1: the fused IDEALEM encode step, scanned over a whole feed.
 //
 // Replaces the TPU kernel src/repro/kernels/encode_step.py::encode_step_pallas
-// (body _encode_step_kernel) without its chan operand.  Per block: the
+// (body _encode_step_kernel), its chan operand included.  Per block: the
 // min/max gate (eq. 3), in the error-bounded mode the pointwise error gate
 // on the raw rows (on their running sum when err_cum), the two-sample KS
 // distance (eq. 1) on the rows that pass both, the lowest passing
@@ -49,7 +49,19 @@
 //
 // Chan.  The per-channel parameters (points nf, inv_n, d_crit, the error
 // gate's eb and err_cum) sit in one Chan value, filled from the launch's
-// scalars; the mixed-mode scan's chan operand fills it per channel.
+// scalars.  The mixed-mode scan of adaptive sessions passes a chan operand,
+// (C, 8) float32 rows laid out as the TPU kernel's (CHAN_NF, CHAN_INV_N,
+// CHAN_DCRIT, CHAN_ERRCUM, CHAN_EBON), and a second instantiation of the
+// kernel fills Chan from channel c's row.  There the candidates and rows
+// hold n columns, the lane's nf real points and +inf pads after them: the
+// eq. 3 gate and the stored maximum read x[nf - 1] (the masked maximum:
+// NaNs sort after the pads), the error gate covers the first nf raw
+// columns, and the KS counts run over all n columns with the gaps taken at
+// the first nf points (ks_count.cuh's ks_warp_padded).  A row stored
+// before the cohort grew reads [.., NaN, +inf pads], which is not sorted
+// NaN-last, so each row's NaN count is kept beside it (counted at launch,
+// set on insert) for the one query that needs it, +inf.  Raw rows are
+// carried whenever the launch has a bound; the lane's flag arms its gate.
 //
 // Arithmetic matches the plain version op for op (ks_arith.cuh: every
 // product and difference rounded on its own, the library built with
@@ -66,6 +78,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSentinel = 1 << 30;
 constexpr int kBatch = 128;  // steps whose masks and decisions move together
+constexpr int kChanStride = 8;  // floats a channel in the chan operand
+enum { kChanNf, kChanInvN, kChanDcrit, kChanErrCum, kChanEbOn };
 
 struct Chan {
   int nf;        // points of a block (the row stride is n)
@@ -127,6 +141,7 @@ __device__ __forceinline__ void prefetch(float* s_x, float* s_rx, const float* _
   cp_async_commit();
 }
 
+template <bool kChan>
 __global__ void __launch_bounds__(kThreads)
 encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bvalid,
                    const float* __restrict__ dict_in, const float* __restrict__ dmin_in,
@@ -139,9 +154,15 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
                    const float* __restrict__ raw_in, float* __restrict__ raw_out,
                    int nb, int n, int D, float d_crit, float rel_tol, float inv_n,
                    float error_bound, int use_minmax, int use_ks, int eb_in, int err_cum,
-                   int dict_in_smem) {
-  const Chan ch{n, inv_n, d_crit, eb_in, err_cum};
-  const bool eb = ch.eb != 0;
+                   int dict_in_smem, const float* __restrict__ chan) {
+  const int c = blockIdx.x;
+  Chan ch{n, inv_n, d_crit, eb_in, err_cum};
+  if (kChan) {
+    const float* p = chan + static_cast<size_t>(c) * kChanStride;
+    ch = Chan{static_cast<int>(p[kChanNf]), p[kChanInvN], p[kChanDcrit],
+              eb_in && p[kChanEbOn] != 0.0f, p[kChanErrCum] != 0.0f};
+  }
+  const bool eb = eb_in != 0;  // raw rows carried (ch.eb: the gate armed)
   const size_t dn = static_cast<size_t>(D) * n;
   extern __shared__ float smem[];
   float* s_dict = smem;                                          // D * n, optional
@@ -157,8 +178,8 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
   uint8_t* s_slot = s_hit + kBatch;                              // kBatch (slot < 256)
   uint8_t* s_ow = s_slot + kBatch;                               // kBatch
   uint8_t* s_bv = s_ow + kBatch;                                 // 2 x kBatch
+  int* s_nanc = reinterpret_cast<int*>(s_valid + (D + 5 * kBatch + 3) / 4 * 4);  // D if kChan
 
-  const int c = blockIdx.x;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
@@ -166,7 +187,7 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
   float* rdict = eb ? (dict_in_smem ? s_rdict : raw_out + c * dn) : nullptr;
   const size_t row0 = static_cast<size_t>(c) * nb;
   int top = 1;
-  while (2 * top <= ch.nf) top *= 2;
+  while (2 * top <= n) top *= 2;
 
   prefetch(s_x, s_rx, xs, raw_x, row0, n, eb);
   for (size_t i = t; i < dn; i += kThreads) dict[i] = dict_in[c * dn + i];
@@ -185,6 +206,14 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
     bv_next = 2 * kBatch + t < nb ? bvalid[row0 + 2 * kBatch + t] : 0;
   }
   int count = count_in[c];
+  if (kChan) {  // each row's NaN count, once the copies above have landed
+    __syncthreads();
+    for (int r = t; r < D; r += kThreads) {
+      int k = 0;
+      for (int i = 0; i < n; ++i) k += isnan(dict[r * n + i]) ? 1 : 0;
+      s_nanc[r] = k;
+    }
+  }
 
   for (int b = 0; b < nb; ++b) {
     const int j = b % kBatch;
@@ -217,7 +246,7 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
       if (t < D && s_valid[t]) {
         pass = !use_minmax ||
                minmax_gate(x[0], x[ch.nf - 1], s_dmin[t], s_dmax[t], rel_tol);
-        if (pass && eb) pass = within_bound(rdict + t * n, rx, ch.nf, error_bound, ch.err_cum);
+        if (pass && ch.eb) pass = within_bound(rdict + t * n, rx, ch.nf, error_bound, ch.err_cum);
       }
       const unsigned m = __ballot_sync(0xffffffffu, pass);
       if (lane == 0) s_gate[warp] = m;
@@ -239,7 +268,10 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
             }
             for (int i = before; i < k; ++i) word &= word - 1;
             const int row = w * 32 + __ffs(word) - 1;
-            const float ks = ks_warp(dict + row * n, x, x, ch.nf, top, ch.inv_n, lane);
+            const float ks =
+                kChan ? ks_warp_padded(dict + row * n, x, n, ch.nf, top, ch.inv_n,
+                                       n - s_nanc[row], lane)
+                      : ks_warp(dict + row * n, x, x, n, top, ch.inv_n, lane);
             if (ks <= ch.d_crit) res = row;
           }
           if (lane == 0) s_res[(r & 1) * kWarps + warp] = res;
@@ -270,6 +302,11 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
         s_dmin[ins] = x[0];
         s_dmax[ins] = x[ch.nf - 1];
         s_valid[ins] = 1;
+        if (kChan) {  // the candidate is sorted: its NaNs are its tail
+          int k = n;
+          while (k > 0 && isnan(x[k - 1])) --k;
+          s_nanc[ins] = n - k;
+        }
       }
       ++count;
     }
@@ -299,13 +336,14 @@ encode_scan_kernel(const float* __restrict__ xs, const uint8_t* __restrict__ bva
 
 // Dynamic shared memory: the candidate buffers (and raw rows with eb), the
 // row extremes, the gate and KS words, the valid flags, the staged
-// decisions and masks, and -- when dict_in_smem -- the dictionary (and its
-// raw rows).
-size_t smem_bytes(int n, int D, bool eb, bool dict_in_smem) {
+// decisions and masks, with chan the rows' NaN counts, and -- when
+// dict_in_smem -- the dictionary (and its raw rows).
+size_t smem_bytes(int n, int D, bool eb, bool chan, bool dict_in_smem) {
   const int rows = eb ? 2 : 1;
   const size_t bytes = static_cast<size_t>(D) + 5 * kBatch;
   const size_t base = sizeof(float) * (2 * static_cast<size_t>(rows) * n + 2 * D) +
-                      sizeof(int) * 3 * kWarps + (bytes + 3) / 4 * 4;
+                      sizeof(int) * 3 * kWarps + (bytes + 3) / 4 * 4 +
+                      (chan ? sizeof(int) * D : 0);
   return base + (dict_in_smem ? sizeof(float) * rows * static_cast<size_t>(D) * n : 0);
 }
 
@@ -320,28 +358,31 @@ extern "C" int encode_scan_f32(const float* xs, const uint8_t* bvalid, const flo
                                const float* raw_in, float* raw_out, int C, int nb, int n,
                                int D, float d_crit, float rel_tol, float inv_n,
                                float error_bound, int use_minmax, int use_ks, int eb,
-                               int err_cum, void* stream) {
+                               int err_cum, const float* chan, void* stream) {
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const bool in_smem = smem_bytes(n, D, eb, true) <= static_cast<size_t>(max_smem);
-  const size_t smem = smem_bytes(n, D, eb, in_smem);
+  const bool has_chan = chan != nullptr;
+  const bool in_smem =
+      smem_bytes(n, D, eb, has_chan, true) <= static_cast<size_t>(max_smem);
+  const size_t smem = smem_bytes(n, D, eb, has_chan, in_smem);
+  auto kernel = has_chan ? encode_scan_kernel<true> : encode_scan_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      encode_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  encode_scan_kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       xs, bvalid, dict_in, dmin_in, dmax_in, valid_in, count_in, dict_out, dmin_out,
       dmax_out, valid_out, count_out, is_hit, slot, overwrite, raw_x, raw_in, raw_out, nb, n,
       D, d_crit, rel_tol, inv_n, error_bound, use_minmax, use_ks, eb, err_cum,
-      in_smem ? 1 : 0);
+      in_smem ? 1 : 0, chan);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Whether a feed of this shape keeps its dictionary in shared memory (for
 // the checks that exercise both layouts).
-extern "C" int encode_scan_dict_in_smem(int n, int D, int eb) {
+extern "C" int encode_scan_dict_in_smem(int n, int D, int eb, int chan) {
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return smem_bytes(n, D, eb != 0, true) <= static_cast<size_t>(max_smem);
+  return smem_bytes(n, D, eb != 0, chan != 0, true) <= static_cast<size_t>(max_smem);
 }

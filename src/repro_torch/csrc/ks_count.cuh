@@ -37,6 +37,40 @@ __device__ __forceinline__ float ks_warp(const float* __restrict__ d,
   return m;
 }
 
+// ks_warp for the mixed-mode scan (K1's chan operand), whose candidate and
+// rows hold n columns: the lane's nf real points and, past them, +inf pads.
+// The counts run over all n columns (a pad counts where the query is +inf)
+// and the gaps are taken at the first nf points only, each scaled by the
+// lane's inv_n; top is the largest power of two <= n.  The candidate is
+// sorted with NaNs last, so its count is a binary search for any query.  A
+// row may not be: a row stored at a narrower width and grown since reads
+// [.., NaN, +inf pads], so #{d <= +inf} holds on no prefix.  Every other
+// query finds the row's predicate on a prefix (+inf and NaN both fail it),
+// and a +inf query takes the row's count of non-NaN points, d_le_inf, as
+// the broadcast compares of the TPU kernel count it.
+__device__ __forceinline__ float ks_warp_padded(const float* __restrict__ d,
+                                                const float* __restrict__ xs, int n, int nf,
+                                                int top, float inv_n, int d_le_inf,
+                                                int lane) {
+  const float inf = __int_as_float(0x7f800000);
+  float m = 0.0f;
+  for (int j = lane; j < nf; j += 32) {
+    const float xj = xs[j], dj = d[j];
+    int cnt_d = 0, cnt_x = 0, rank_d = 0;
+    for (int s = top; s > 0; s >>= 1) {
+      const int a = cnt_d + s, b = cnt_x + s, r = rank_d + s;
+      if (a <= n && d[a - 1] <= xj) cnt_d = a;
+      if (b <= n && xs[b - 1] <= dj) cnt_x = b;
+      if (r <= n && d[r - 1] <= dj) rank_d = r;
+    }
+    if (xj == inf) cnt_d = d_le_inf;
+    if (dj == inf) rank_d = d_le_inf;
+    m = fmaxf(m, fmaxf(gap_at_candidate(j, cnt_d, inv_n), gap_at_row(cnt_x, rank_d, inv_n)));
+  }
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
+
 // #{a[0, 2^L) <= v} over a sorted with NaNs last, where the tail past the
 // data holds NaNs (so it never counts): a branch-free binary search with
 // the <= predicate, log2 steps and one last probe at the count.

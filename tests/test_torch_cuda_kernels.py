@@ -2,8 +2,9 @@
 (decisions and carry equal, cumsum and KS distances bitwise, K4 within
 1e-5; K3 also on NaNs of both signs, +-inf, +-0.0, ties and unsorted
 candidates up to n = 4096, K2 on ragged and misaligned views), plus the
-golden corpus through ``backend="cuda"``, the ``"ops"`` matcher and the LM
-serve path's decode through K4.  Marked ``cuda``; without a card every
+golden corpus through ``backend="cuda"``, the ``"ops"`` matcher, K1's
+``chan`` operand and an adaptive session, and the LM serve path's decode
+through K4.  Marked ``cuda``; without a card every
 test skips.
 
 Run on a machine with a card: ``PYTHONPATH=src python -m pytest -q -m cuda
@@ -79,6 +80,86 @@ def test_encode_scan_error_bound_matches_plain(dev, D, n, cumulative):
     for a, b in zip((*got, *gst), (*want, *wst)):
         assert torch.equal(a, b)
     assert k1.dict_in_smem(n, D, True) == (D * n <= 255 * 111)
+
+
+@pytest.mark.parametrize("D,n,minmax,bound,nonfinite", [
+    (9, 16, True, None, False), (9, 16, False, None, True),
+    (255, 32, False, None, True), (255, 111, True, None, False),
+    (255, 256, True, None, False), (9, 32, True, 0.5, False),
+    (255, 32, False, 0.5, True), (255, 111, True, 0.5, False)])
+def test_encode_scan_chan_matches_plain(dev, D, n, minmax, bound,
+                                        nonfinite):
+    """K1's chan operand: lanes of widths n-3..n (+inf pads), per-lane
+    d_crit, error metric and armed gate, NaN/+-inf/-0.0 blocks."""
+    from repro_torch.core.encoder import chan_params
+    from repro_torch.testing import mixed_cohort
+    blocks, valid, nf, dc, ec, ebo = mixed_cohort(6, 200, n, seed=D + n,
+                                                  nonfinite=nonfinite)
+    raw = torch.from_numpy(blocks).to(dev)
+    xs = torch.sort(raw, dim=-1).values
+    vt = torch.from_numpy(valid).to(dev)
+    kw = dict(d_crit=0.0, rel_tol=0.5, use_minmax=minmax,
+              chan=chan_params(nf, dc, ec, ebo, dev).block())
+    if bound is not None:
+        kw.update(raw=raw, error_bound=bound)
+    st = init_state(D, n, channels=6, device=dev, raw=bound is not None)
+    before = k1.launches
+    got, gst = k1.encode_scan(xs, vt, st, **kw)
+    assert k1.launches == before + 1
+    want, wst = k1.encode_scan_torch(xs, vt, st, **kw)
+    for a, b in zip((*got, *gst), (*want, *wst)):
+        assert _bits_equal(a, b)
+
+
+def test_encode_scan_chan_grown_rows(dev):
+    """Rows stored at width n - 1 with NaNs, grown to n ([.., NaN, +inf]),
+    queried by candidates whose +inf pads fall inside their width."""
+    from repro_torch.core.encoder import chan_params, repad_state_n
+    from repro_torch.testing import mixed_cohort
+    n = 32
+    wa = [n - 1, n - 3, n - 2, n - 1, n - 4, n - 2]
+    st = init_state(255, n - 1, channels=6, device=dev)
+    for feed, widths in ((0, wa), (1, [n] + wa[1:])):
+        blocks, valid, _, dc, ec, ebo = mixed_cohort(
+            6, 300, n - 1 + feed, seed=7 + feed, widths=widths,
+            nonfinite=True)
+        xs = torch.sort(torch.from_numpy(blocks).to(dev), -1).values
+        vt = torch.from_numpy(valid).to(dev)
+        kw = dict(d_crit=0.0, rel_tol=0.5, use_minmax=False,
+                  chan=chan_params(widths, dc, ec, ebo, dev).block())
+        if feed:
+            st = repad_state_n(st, n)
+        got, gst = k1.encode_scan(xs, vt, st, **kw)
+        want, wst = k1.encode_scan_torch(xs, vt, st, **kw)
+        for a, b in zip((*got, *gst), (*want, *wst)):
+            assert _bits_equal(a, b)
+        st = gst
+
+
+def test_adaptive_session_one_launch_per_feed(dev, monkeypatch):
+    """An adaptive session on the card: one K1 launch a feed (none of K3),
+    streams equal to the per-channel loop's and to backend="torch"."""
+    from repro_torch.core.session import _ADAPTIVE_LOOP_ENV
+    rng = np.random.default_rng(0)
+    t = np.arange(16 * 60, dtype=np.float64)
+    data = np.stack([rng.normal(0, 1, t.size), 0.03 * t +
+                     rng.normal(0, 0.02, t.size)] * 2)
+    kw = dict(mode="std", block_size=16, num_dict=8, adaptive=True)
+
+    def run(**extra):
+        s = IdealemCodec(**kw, **extra).session(channels=4)
+        out = [s.feed(data[:, lo:lo + 160]) for lo in range(0, t.size, 160)]
+        return out + [s.finish()], s
+
+    n1, n3 = k1.launches, k3.launches
+    fused, s = run()
+    assert k1.launches - n1 == 6 and k3.launches == n3
+    assert s._mixed.dispatches == 6
+    assert any(st.mode_switches for st in s.stats)
+    assert run(backend="torch")[0] == fused
+    monkeypatch.setenv(_ADAPTIVE_LOOP_ENV, "1")
+    loop, ls = run()
+    assert ls._mixed is None and loop == fused
 
 
 def _bits_equal(a, b):
