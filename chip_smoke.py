@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of IDEALEM on one CUDA card: build, check, time.
 
-It drives both of the port's paths: the codec round trip (phases 3-11)
-and the LM serve path (phases 12-13).
+It drives both of the port's paths: the codec round trip with its indexed
+store (phases 3-12) and the LM serve path (phases 13-14).
 
 Run from the root of a checkout, with no arguments:
 
@@ -66,10 +66,33 @@ Phases, each fatal on failure (no failure is caught):
               channel decodes within the bound (circular for ANG) up to the
               gate's float32 rounding; cuda decode == numpy decode; K1's
               decisions on 4 channels == the plain scan on the card.
-10. auto   -- ``matcher="auto"`` resolved on the card at the MAG and ANG
+10. store  -- the indexed store, per Table I configuration at 64 channels
+              x 2**20 samples: a ``codec.session(channels=64,
+              container=True)`` fed all 16 chunks on ``backend="cuda"``;
+              the container copied into a file (a temporary directory)
+              through ``ContainerWriter(path)`` and read back with
+              ``Container.open(path, mmap=True)``; a full
+              ``decode_channels`` read; 4,096 range requests (seed 17:
+              channel uniform, length log-uniform over 1..4,096 blocks,
+              start uniform) in calls of 256 through ``decode_ranges``
+              (``numpy``: the first 2 calls).
+              Checks: the container's 4 plain channels == a plain
+              session's bytes; mmap == in memory; cuda reads == numpy
+              reads bitwise, == ``decode_stream`` on the plain channels,
+              miss blocks (std) or bases (residual/delta) and tails exact;
+              every range == its slice of the full read; one K2 launch a
+              read call on ANG_delta, none elsewhere, no K1 on reads; a
+              one-block range deep in a channel walks one chunk, a
+              two-block range across a segment boundary two; the port's
+              ``obs.selfcheck`` is clean and its request, block and
+              cuda-call counters equal the phase's own counts.  Prints the
+              container's bytes, index share and ratio, encode MB/s, full
+              and range read MB/s and requests/s on cuda and numpy, and a
+              ``[profile]`` line of one 256-request read.
+11. auto   -- ``matcher="auto"`` resolved on the card at the MAG and ANG
               shapes: the probe's times and choice; the choice decides the
               first feed as the fused scan does.
-11. adaptive -- ``IdealemCodec(adaptive=True)`` (the MAG configuration,
+12. adaptive -- ``IdealemCodec(adaptive=True)`` (the MAG configuration,
               the default SelectorConfig) on 64 channels, MAG traffic on
               the even ones and ANG traffic on the odd ones, all 16 chunks:
               the ANG lanes switch to delta (width 31) beside the std MAG
@@ -87,7 +110,7 @@ Phases, each fatal on failure (no failure is caught):
               delta lanes on the cumulative gate.  Prints MB/s, hit rate,
               switches by channel kind, the selectors' and the staging's
               host seconds and a ``[profile]`` line of the encode.
-12. K4     -- the flash_decode kernel against its plain version on the
+13. K4     -- the flash_decode kernel against its plain version on the
               card, within 1e-5: the JAX test's shapes, C in {1, 33, 700,
               2048}, G in {1, 4, 16}, hd in {64, 128}, f32/bf16/f16 caches,
               rows masked by ``decode_attention``'s ring formula (plain,
@@ -95,7 +118,7 @@ Phases, each fatal on failure (no failure is caught):
               mean of V); shapes split along C with a ragged last split,
               G=6 in head groups and C=32,768 at B=1.  Prints the split
               counts.
-13. serve  -- granite-3-8b at full width (weights from a seeded
+14. serve  -- granite-3-8b at full width (weights from a seeded
               ``torch.Generator``) through ``ServeEngine.generate``: 8
               numpy-seeded prompts of 256 tokens, 64 greedy tokens,
               max_seq 2048.  Checks: one K4 launch per layer and step
@@ -110,7 +133,7 @@ Phases, each fatal on failure (no failure is caught):
               (device operations a step; K4's and its combine kernel's
               device ms), and the host's milliseconds to issue those steps
               unprofiled beside their wall time.
-14. timing -- each kernel at a main-path shape against its plain version
+15. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
@@ -120,8 +143,11 @@ Phases, each fatal on failure (no failure is caught):
               MAG and ANG step shapes, rows sorted (as the ops path passes
               them) and in random order, with its launch plan (CTAs), and
               at C=1, D=1, n=32 (the launch floor); K2 in f64 (the decode's
-              type), f32 and f16; K4 at the serve shape and at a 32k
-              context (with its split count); K1 also in microseconds a
+              type), f32 and f16, and on its operands of the store's
+              ANG_delta reads (one 256-request call and the full read),
+              bitwise against its plain version and ``np.cumsum``; K4 at
+              the serve shape and at a 32k context (with its split
+              count); K1 also in microseconds a
               block step; prints the ``{"kernels": [...]}`` line.
 
 Prints the card line (``nvidia-smi --query-gpu=name,power.limit``) and, last,
@@ -129,6 +155,7 @@ Prints the card line (``nvidia-smi --query-gpu=name,power.limit``) and, last,
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -190,6 +217,12 @@ BOUNDS = {"MAG": dict(error_bound=3.0),
 # tests/test_error_bounded.py's allowance for f32 rounding on top of the
 # bound, relative to the bound
 EB_SLOP = 1e-4
+# The store phase: range reads an analyst makes of archived telemetry,
+# issued STORE_BATCH to a decode_ranges call.
+STORE_REQUESTS, STORE_BATCH, STORE_MAX_BLOCKS = 4096, 256, 4096
+# backend="numpy" reconstructs each call's padded batch (~2**20 rows) on
+# the host, ~6 s a call on ANG: it is timed on the first calls only.
+STORE_NUMPY_CALLS = 2
 # The serve phase: granite-3-8b at full width, a few requests of a
 # realistic prompt length at the engine's default max_seq.
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "granite-3-8b", 8, 256, 64
@@ -684,29 +717,34 @@ def device_profile(torch, fn, names=()):
     """Run ``fn`` under ``torch.profiler``: wall seconds (host clock, ending
     in a sync), the union of the card's activity intervals (kernels and
     copies), the summed device time of the busiest names and of the names
-    that hold each of ``names``."""
+    that hold each of ``names``.  A trace that holds no device activity
+    (seen now and then after many traces in one process) is taken again,
+    up to 3 runs; ``runs`` says how many were made."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for runs in range(1, 4):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        a, b = e.time_range.start, e.time_range.end
-        spans.append((a, b))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans, by_name = [], {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            a, b = e.time_range.start, e.time_range.end
+            spans.append((a, b))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+        if spans:
+            break
     busy_us, end = 0.0, -np.inf
     for a, b in sorted(spans):
         if b > end:
             busy_us += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    out = {"wall_s": wall, "device_events": len(spans),
+    out = {"wall_s": wall, "runs": runs, "device_events": len(spans),
            "device_busy_s": busy_us / 1e6,
            "busy_share": busy_us / 1e6 / wall if spans else None,
            "device_ms_by_name": {k[:80]: v for k, v in top}}
@@ -1004,6 +1042,226 @@ def phase_bound(torch, dev, card, known):
             f" [{card}]")
         del x, fused, ys, blobs
     return launches
+
+
+def store_requests(nb):
+    """The analyst's range traffic over a container whose channels hold
+    ``nb`` blocks each: STORE_REQUESTS ``(channel, start, stop)`` from
+    seed 17, channel uniform, length log-uniform over 1..STORE_MAX_BLOCKS
+    (clipped to the channel), start uniform."""
+    rng = np.random.default_rng(17)
+    ch = rng.integers(0, CHANNELS, STORE_REQUESTS)
+    n = np.exp(rng.uniform(0.0, np.log(STORE_MAX_BLOCKS), STORE_REQUESTS))
+    n = np.clip(np.rint(n).astype(np.int64), 1, nb)
+    start = (rng.random(STORE_REQUESTS) * (nb - n + 1)).astype(np.int64)
+    return [(int(c), int(a), int(a + m)) for c, a, m in zip(ch, start, n)]
+
+
+@contextlib.contextmanager
+def first_k2_operand(k2):
+    """Holds a reference (no copy) to the operand of the first K2 launch
+    made inside the block: the read path's padded batch."""
+    seen, real = [], k2.seq_cumsum
+
+    def spy(x):
+        if not seen:
+            seen.append(x)
+        return real(x)
+
+    k2.seq_cumsum = spy
+    try:
+        yield seen
+    finally:
+        k2.seq_cumsum = real
+
+
+def phase_store(torch, dev, card):
+    """The indexed store (10.): for each Table I configuration a
+    ``container=True`` session of 64 channels x 2**20 samples, the
+    container written to a file and opened through mmap, a full read and
+    STORE_REQUESTS range reads on ``backend="cuda"`` against
+    ``backend="numpy"``, and the port's telemetry.  Returns the (K1, K2)
+    launches of its paths and the K2 operands of the ANG_delta reads."""
+    import os
+    import tempfile
+    from repro_torch import IdealemCodec, obs
+    from repro_torch.core.stream import _walk_all, decode_stream
+    from repro_torch.kernels import encode_step as k1
+    from repro_torch.kernels import seq_cumsum as k2
+    from repro_torch.store import (Container, ContainerWriter,
+                                   decode_channels, decode_ranges)
+    reg = obs.registry()
+    counted = {"requests": ("repro_store_range_requests_total", None),
+               "blocks": ("repro_encode_blocks_total", None),
+               "cuda_calls": ("repro_decode_backend_calls_total",
+                              {"backend": "cuda"})}
+    before = {k: reg.get_value(*v) for k, v in counted.items()}
+    own = dict.fromkeys(counted, 0)
+    k2_operands = {}
+    step = SAMPLES // CHUNKS
+    k1.launches = k2.launches = 0
+
+    def read(store, requests, backend):
+        own["requests"] += len(requests)
+        own["cuda_calls"] += backend == "cuda"
+        return decode_ranges(store, requests, backend=backend)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for cfg_name, cfg in CONFIGS.items():
+            delta = cfg["mode"] == "delta"
+            codec = IdealemCodec(device=dev, **cfg)
+            B = codec.block_size
+            nb = SAMPLES // B
+            x = make_traffic(cfg_name)
+            # 1. write: one container session, then the container copied
+            # into a file through the writer and opened through mmap
+            n1 = k1.launches
+            sess = codec.session(channels=CHANNELS, container=True)
+            t0 = time.perf_counter()
+            for lo in range(0, SAMPLES, step):
+                sess.feed(x[:, lo:lo + step])
+            blob = sess.finish()
+            torch.cuda.synchronize()
+            t_enc = time.perf_counter() - t0
+            check(k1.launches - n1 == CHUNKS,
+                  f"store {cfg_name}: K1 once per feed "
+                  f"({k1.launches - n1})")
+            plain = encode_session(torch, codec, x[list(PLAIN_CHANNELS)])
+            own["blocks"] += (CHANNELS + len(PLAIN_CHANNELS)) * nb
+            mem = Container(blob)
+            for i, c in enumerate(PLAIN_CHANNELS):
+                check(mem.stream_bytes(c) == plain[i],
+                      f"store {cfg_name} ch{c}: container stream == plain "
+                      "session bytes")
+            path = os.path.join(tmp, f"{cfg_name}.idlmc")
+            w = ContainerWriter(path)
+            for c in mem.channels:
+                w.append(mem.stream_bytes(c), channel=c)
+            w.finalize()
+            store = Container.open(path, mmap=True)
+            check(store.describe() == mem.describe() and all(
+                store.stream_bytes(c) == mem.stream_bytes(c)
+                for c in mem.channels),
+                f"store {cfg_name}: mmap container == in-memory container")
+            info = mem.describe()
+            written = {"container_bytes": len(blob),
+                       "index_bytes": info["index_bytes"],
+                       "index_share_of_stream_bytes":
+                           info["index_bytes"] / info["data_bytes"],
+                       "chunks": info["chunks"], "ratio": x.nbytes / len(blob),
+                       "encode_MBps": x.nbytes / t_enc / 1e6}
+
+            # 2. full read of every channel
+            n1, n2 = k1.launches, k2.launches
+            with first_k2_operand(k2) as op:
+                own["requests"] += CHANNELS
+                own["cuda_calls"] += 1
+                t0 = time.perf_counter()
+                full = decode_channels(store, backend="cuda")
+                t_full = time.perf_counter() - t0
+            check(k2.launches - n2 == int(delta),
+                  f"store {cfg_name}: full read, K2 launches "
+                  f"{k2.launches - n2}")
+            if delta:
+                k2_operands["decode_channels"] = op[0]
+            own["requests"] += CHANNELS
+            t0 = time.perf_counter()
+            ref = decode_channels(store, backend="numpy")
+            t_full_np = time.perf_counter() - t0
+            tail = SAMPLES - nb * B
+            for c in range(CHANNELS):
+                y = full[c]
+                check(y.shape == (SAMPLES,)
+                      and y.tobytes() == ref[c].tobytes(),
+                      f"store {cfg_name} ch{c}: cuda read == numpy read")
+                yb = y[:nb * B].reshape(nb, B)
+                xb = x[c, :nb * B].reshape(nb, B)
+                if cfg["mode"] == "std":
+                    hit = _walk_all(memoryview(store.stream_bytes(c)))[1]
+                    check(np.array_equal(yb[~hit], xb[~hit]),
+                          f"store {cfg_name} ch{c}: miss blocks exact")
+                else:
+                    check(np.array_equal(yb[:, 0], xb[:, 0]),
+                          f"store {cfg_name} ch{c}: block bases exact")
+                check(np.array_equal(y[nb * B:], x[c, nb * B:]),
+                      f"store {cfg_name} ch{c}: tail exact ({tail})")
+            for c in PLAIN_CHANNELS:
+                check(ref[c].tobytes() == decode_stream(
+                    mem.stream_bytes(c), backend="numpy").tobytes(),
+                    f"store {cfg_name} ch{c}: read == decode_stream")
+
+            # 3. range traffic, STORE_BATCH requests a call
+            reqs = store_requests(nb)
+            batches = [reqs[i:i + STORE_BATCH]
+                       for i in range(0, len(reqs), STORE_BATCH)]
+            n1, n2 = k1.launches, k2.launches
+            with first_k2_operand(k2) as op:
+                t0 = time.perf_counter()
+                got = [y for b in batches for y in read(store, b, "cuda")]
+                t_cuda = time.perf_counter() - t0
+            check(k2.launches - n2 == len(batches) * int(delta),
+                  f"store {cfg_name}: K2 launches on reads "
+                  f"{k2.launches - n2} for {len(batches)} calls")
+            check(k1.launches == n1, f"store {cfg_name}: no K1 on reads")
+            if delta:
+                k2_operands["decode_ranges"] = op[0]
+            t0 = time.perf_counter()
+            got_np = [y for b in batches[:STORE_NUMPY_CALLS]
+                      for y in read(store, b, "numpy")]
+            t_np = time.perf_counter() - t0
+            for k, ((c, i, j), y) in enumerate(zip(reqs, got)):
+                want = ref[c][i * B:j * B].tobytes()
+                check(y.tobytes() == want and (k >= len(got_np) or
+                                               got_np[k].tobytes() == want),
+                      f"store {cfg_name}: range ({c}, {i}, {j}) == the "
+                      "slice of the full read")
+            # a one-block range deep in a channel walks its one chunk; a
+            # two-block range across a segment boundary walks two
+            ks = store.chunks_of(CHANNELS - 1)
+            edge = int(store._cols["blocks_before"][ks[CHUNKS // 2]])
+            for lo, hi, walks in ((edge + 5, edge + 6, 1),
+                                  (edge - 1, edge + 1, 2)):
+                w0 = reg.get_value("repro_store_chunk_walks_total")
+                (y,) = read(store, [(CHANNELS - 1, lo, hi)], "cuda")
+                grew = reg.get_value("repro_store_chunk_walks_total") - w0
+                check(grew == walks and y.tobytes() ==
+                      ref[CHANNELS - 1][lo * B:hi * B].tobytes(),
+                      f"store {cfg_name}: [{lo}, {hi}) walked {grew} chunks "
+                      f"(want {walks})")
+            blocks = sum(j - i for _, i, j in reqs)
+            blocks_np = sum(j - i for _, i, j in reqs[:len(got_np)])
+            res = {**written,
+                   "full_read_MBps": x.nbytes / t_full / 1e6,
+                   "full_read_numpy_MBps": x.nbytes / t_full_np / 1e6,
+                   "requests": len(reqs), "calls": len(batches),
+                   "blocks_requested": blocks,
+                   "requests_per_s": len(reqs) / t_cuda,
+                   "range_MBps": blocks * B * 8 / t_cuda / 1e6,
+                   "requests_numpy": len(got_np),
+                   "requests_per_s_numpy": len(got_np) / t_np,
+                   "range_MBps_numpy": blocks_np * B * 8 / t_np / 1e6}
+            say(f"[store] {cfg_name} {CHANNELS} ch x {SAMPLES} f64: "
+                f"{json.dumps(res)} [{card}]")
+            say(f"[profile] {cfg_name} range read, {STORE_BATCH} requests: "
+                f"""{json.dumps(device_profile(
+                    torch, lambda: read(store, batches[0], 'cuda'),
+                    names=('seq_cumsum', 'HtoD', 'DtoH', 'indexSelect',
+                           'gather')))} [{card}]""")
+            store.close()
+            del x, full, ref, got, got_np, mem, blob
+
+    # 4. the port's telemetry over the phase
+    check(obs.selfcheck(reg) == [], "obs.selfcheck(registry()) == []")
+    grew = {k: reg.get_value(*v) - before[k] for k, v in counted.items()}
+    check(grew == own, f"store telemetry {grew} == the phase's own counts "
+          f"{own}")
+    misses = {r: reg.get_value("repro_encode_miss_total", {"reason": r})
+              for r in ("cold", "minmax", "ks", "error_bound")}
+    say(f"[store] telemetry: {len(obs.to_prometheus().splitlines())} "
+        f"exposition lines; counters == the phase's counts {json.dumps(own)}"
+        f"; repro_encode_miss_total by reason (numpy oracle runs) "
+        f"{json.dumps(misses)}")
+    return (k1.launches, k2.launches), k2_operands
 
 
 def phase_auto(torch, dev, card, first_chunks):
@@ -1451,12 +1709,18 @@ def time_k1_mixed(torch, dev, pay, nf, d_crit, codec):
     }
 
 
-def time_k2(torch, dev, rows, width, dtype=np.float64):
+def time_k2(torch, dev, rows, width, dtype=np.float64, xt=None):
+    """K2 on random rows of the given shape, or on the operand ``xt`` a
+    path handed it; held bitwise against its plain version and
+    ``np.cumsum``."""
     from repro_torch.kernels import seq_cumsum as k2
-    rng = np.random.default_rng(11)
-    x = rng.normal(0, 0.05, (rows, width)).astype(dtype)
-    x[:, 0] = -0.0
-    xt = torch.from_numpy(x).to(dev)
+    if xt is None:
+        rng = np.random.default_rng(11)
+        x = rng.normal(0, 0.05, (rows, width)).astype(dtype)
+        x[:, 0] = -0.0
+        xt = torch.from_numpy(x).to(dev)
+    rows, width = xt.shape
+    dtype = xt[:0].cpu().numpy().dtype
     ms = cuda_ms(lambda: k2.seq_cumsum(xt), reps=20, queued=True)
     got = k2.seq_cumsum(xt)
     plain_ms = cuda_ms(lambda: k2.seq_cumsum_torch(xt), reps=3)
@@ -1467,9 +1731,13 @@ def time_k2(torch, dev, rows, width, dtype=np.float64):
     ops = rows * (width - 1)  # f16 adds in f32
     rate = PEAK_OPS["f64" if dtype == np.float64 else "f32"]
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
+    bits = got.cpu().numpy().tobytes()
+    bitwise = (bits == want.cpu().numpy().tobytes()
+               and bits == np.cumsum(xt.cpu().numpy(), axis=1).tobytes())
     return {
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "max_abs_err": float((got.double() - want.double()).abs().max()),
+        "bitwise_plain_and_np_cumsum": bitwise,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "shape": {"R": rows, "P": width, "dtype": np.dtype(dtype).name},
@@ -1727,9 +1995,10 @@ def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
     }
 
 
-def phase_timing(torch, dev, card, first_chunks):
-    """Each kernel at its main-path shapes (14.): returns the timings that
-    the kernels JSON line reports, by kernel."""
+def phase_timing(torch, dev, card, first_chunks, k2_reads):
+    """Each kernel at its main-path shapes (15.): returns the timings that
+    the kernels JSON line reports, by kernel.  ``k2_reads`` holds K2's
+    operands on the store's ANG_delta reads."""
     from repro_torch.core.decode import _pow2
     k1_main = time_k1(torch, dev, *first_chunks["MAG"])
     k1_mixed = time_k1_mixed(torch, dev, *first_chunks["adaptive"])
@@ -1747,6 +2016,8 @@ def phase_timing(torch, dev, card, first_chunks):
     k2_main = time_k2(torch, dev, _pow2(nb_ang), P_ang)
     k2_f32 = time_k2(torch, dev, _pow2(nb_ang), P_ang, np.float32)
     k2_f16 = time_k2(torch, dev, _pow2(nb_ang), P_ang, np.float16)
+    k2_range = time_k2(torch, dev, 0, 0, xt=k2_reads["decode_ranges"])
+    k2_channels = time_k2(torch, dev, 0, 0, xt=k2_reads["decode_channels"])
     D = mag_codec.num_dict
     n_mag, n_ang = mag_pay.shape[-1], ang_codec.block_size - 1
     # the ops path passes the dictionary's rows, which are sorted
@@ -1763,6 +2034,8 @@ def phase_timing(torch, dev, card, first_chunks):
                     ("K1 turnover", k1_turn), ("K2 ANG_delta f64", k2_main),
                     ("K2 ANG_delta shape f32", k2_f32),
                     ("K2 ANG_delta shape f16", k2_f16),
+                    (f"K2 store read, {STORE_BATCH} requests", k2_range),
+                    ("K2 store read, decode_channels", k2_channels),
                     ("K3 MAG step, sorted rows", k3_mag),
                     ("K3 MAG step, random rows", k3_mag_rnd),
                     ("K3 ANG step, sorted rows", k3_ang),
@@ -1774,6 +2047,9 @@ def phase_timing(torch, dev, card, first_chunks):
         check(t["max_abs_err"] <= tol,
               f"{name}: kernel == plain version at the timed shape "
               f"(max_abs_err {t['max_abs_err']}, tolerance {tol})")
+    for t in (k2_main, k2_f32, k2_f16, k2_range, k2_channels):
+        check(t["bitwise_plain_and_np_cumsum"],
+              f"K2 {t['shape']}: bitwise == plain version and np.cumsum")
     check(k1_turn["overwrites"] > 0,
           f"turnover traffic turns the dictionary over "
           f"({k1_turn['overwrites']} overwrites)")
@@ -1809,12 +2085,15 @@ def main() -> int:
     del mag
     launches["encode_step"] += int(n1)
     launches["seq_cumsum"] += int(n2)
+    (n1, n2), k2_reads = phase_store(torch, dev, card)
+    launches["encode_step"] += n1
+    launches["seq_cumsum"] += n2
     phase_auto(torch, dev, card, first_chunks)
     n1, first_chunks["adaptive"] = phase_adaptive(torch, dev, card)
     launches["encode_step"] += n1
     phase_k4(torch, dev)
     launches["flash_decode"] = phase_serve(torch, dev, card)
-    timed = phase_timing(torch, dev, card, first_chunks)
+    timed = phase_timing(torch, dev, card, first_chunks, k2_reads)
 
     def entry(name, source, replaces):
         t = timed[name]

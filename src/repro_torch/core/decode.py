@@ -17,28 +17,59 @@ Backends, all byte-identical:
 
 The device backends run on the device they are given or raise; there is no
 fallback to the host path.  Device shapes are padded to powers of two (pad
-rows are zero-payload misses the per-block math ignores).
+rows are zero-payload misses the per-block math ignores); the padding is
+done on the device, so the host hands over each row once.
+
+Routing is counted on the port's registry (``repro_torch.obs``) under the
+reference's names: ``repro_decode_{host,device}_calls_total`` and
+``repro_decode_backend_calls_total{backend}``; :func:`decode_stats` is a
+dict view of the first two.  The port has no host fallback, so it has no
+``fallbacks`` counter.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import obs
+from ..api import BACKENDS
 from ..device import resolve_device
 from ..errors import StreamFormatError
 from .transforms import np_wrap_range, wrap_range
 
 __all__ = ["MODE_STD", "MODE_RESIDUAL", "MODE_DELTA", "BACKENDS",
-           "DecodePlan", "decode_sources", "hit_perms", "gather_rows",
-           "plan_from_parsed", "reconstruct"]
+           "DecodePlan", "PlanPart", "decode_sources", "hit_perms",
+           "gather_rows", "plan_from_parsed", "pad_parts", "reconstruct",
+           "decode_stats", "reset_decode_stats"]
 
 MODE_STD, MODE_RESIDUAL, MODE_DELTA = 0, 1, 2
 
-#: Recognised ``backend=`` values.
-BACKENDS = ("numpy", "torch", "cuda")
+_stat_counters = {
+    key: obs.registry().counter(f"repro_decode_{key}_total", help_text)
+    for key, help_text in {
+        "host_calls": "reconstruct calls served on the numpy host path",
+        "device_calls": "reconstruct calls served on a device backend",
+    }.items()
+}
+_backend_counters = {
+    b: obs.registry().counter("repro_decode_backend_calls_total",
+                              "reconstruct calls per resolved backend",
+                              labels={"backend": b})
+    for b in BACKENDS
+}
+
+
+def decode_stats() -> dict:
+    """``{"host_calls": int, "device_calls": int}`` since the last reset."""
+    return {key: int(c.value) for key, c in _stat_counters.items()}
+
+
+def reset_decode_stats() -> None:
+    for c in (*_stat_counters.values(), *_backend_counters.values()):
+        c.reset()
 
 
 @dataclass(frozen=True)
@@ -73,6 +104,18 @@ class DecodePlan:
     @property
     def payload_width(self) -> int:
         return int(self.payloads.shape[1])
+
+
+class PlanPart(NamedTuple):
+    """One request's worth of plan inputs, sources already resolved
+    (``rows[i]`` is the payload feeding the part's block ``i``).  Parts of
+    many requests are padded into one :class:`DecodePlan` by
+    :func:`pad_parts`."""
+
+    rows: np.ndarray                # (n, P) per-block source payloads
+    bases: Optional[np.ndarray]     # (n,) or None (std mode)
+    is_hit: np.ndarray              # (n,) bool
+    block_idx: np.ndarray           # (n,) global block positions
 
 
 # ------------------------------------------------------- plan construction
@@ -143,6 +186,48 @@ def plan_from_parsed(header, parsed, seed: int = 0, i0: int = 0) -> DecodePlan:
         no_perm=bool(getattr(header, "error_bounded", False)))
 
 
+def pad_parts(mode: int, block_size: int, dtype, value_range,
+              parts: Sequence[PlanPart], seed: int = 0,
+              no_perm: bool = False) -> Tuple[DecodePlan, int]:
+    """Pad R ragged request parts into ONE plan of shape ``(R * nbm,)``.
+
+    Requests are stacked on a leading axis and padded to the longest; pad
+    blocks are misses on a shared all-zero payload row, which the per-block
+    math ignores.  Each part's rows are copied once, into the plan's
+    payloads.  Returns ``(plan, nbm)``; callers reshape
+    ``reconstruct(plan)`` to ``(R, nbm, B)`` and slice each request back
+    out.
+    """
+    dt = np.dtype(dtype)
+    R = len(parts)
+    lens = [len(p.is_hit) for p in parts]
+    nbm = max(lens)
+    P = block_size if mode == MODE_STD else block_size - 1
+    n_rows = sum(lens)
+    payloads = np.empty((n_rows + 1, P), dtype=dt)   # last row: shared pad
+    payloads[n_rows] = 0
+    src = np.full((R, nbm), n_rows, dtype=np.int64)
+    is_hit = np.zeros((R, nbm), dtype=bool)
+    block_idx = np.zeros((R, nbm), dtype=np.int64)
+    bases = None if mode == MODE_STD else np.zeros((R, nbm), dtype=dt)
+    pos = 0
+    for r, (p, n) in enumerate(zip(parts, lens)):
+        payloads[pos:pos + n] = p.rows
+        src[r, :n] = np.arange(pos, pos + n)
+        is_hit[r, :n] = p.is_hit
+        block_idx[r, :n] = p.block_idx
+        if bases is not None:
+            bases[r, :n] = p.bases
+        pos += n
+    plan = DecodePlan(
+        mode=mode, block_size=block_size, dtype=dt, value_range=value_range,
+        payloads=payloads, src=src.ravel(),
+        bases=None if bases is None else bases.ravel(),
+        is_hit=is_hit.ravel(), block_idx=block_idx.ravel(), seed=seed,
+        no_perm=no_perm)
+    return plan, nbm
+
+
 def _perm_hits(plan: DecodePlan) -> np.ndarray:
     return (np.zeros(0, dtype=np.int64) if plan.no_perm
             else np.flatnonzero(plan.is_hit))
@@ -174,24 +259,33 @@ def _pow2(n: int) -> int:
     return max(1, 1 << (int(n) - 1).bit_length())
 
 
+def _padded(a: np.ndarray, n: int, fill, device: torch.device):
+    """``a`` (host) in the first rows of an ``n``-row tensor on ``device``,
+    the rest ``fill``: one copy of the host rows, the padding written on
+    the device."""
+    host = torch.from_numpy(np.asarray(a))
+    out = torch.empty((n,) + host.shape[1:], dtype=host.dtype, device=device)
+    out[:len(host)].copy_(host)
+    out[len(host):] = fill
+    return out
+
+
 def _run_device(plan: DecodePlan, backend: str,
                 device: torch.device) -> np.ndarray:
     """Gather, permutation apply, re-anchor, (delta) sequential cumsum and
     wrap on ``device``; shapes padded to powers of two."""
     from ..kernels.seq_cumsum import seq_cumsum, seq_cumsum_torch
 
-    dt = np.dtype(plan.dtype)
-    nb, P = plan.nb, plan.payload_width
+    nb = plan.nb
     nbp, nrp = _pow2(nb), _pow2(len(plan.payloads) + 1)
-    payloads = np.zeros((nrp, P), dtype=dt)
-    payloads[:len(plan.payloads)] = plan.payloads
-    src = np.full(nbp, nrp - 1, dtype=np.int64)  # pads read the zero row
-    src[:nb] = plan.src
+    payloads = _padded(plan.payloads, nrp, 0, device)
+    src = _padded(plan.src, nbp, nrp - 1, device)  # pads read a zero row
+    rows = payloads.index_select(0, src)
+    del payloads
 
     def dev(a):
         return torch.from_numpy(a).to(device)
 
-    rows = dev(payloads).index_select(0, dev(src))
     if plan.mode == MODE_STD:
         perm = np.broadcast_to(np.arange(plan.block_size, dtype=np.int64),
                                (nbp, plan.block_size)).copy()
@@ -201,9 +295,7 @@ def _run_device(plan: DecodePlan, backend: str,
                                       plan.block_size)
         out = torch.gather(rows, 1, dev(perm))
     else:
-        bases = np.zeros(nbp, dtype=dt)
-        bases[:nb] = plan.bases
-        b = dev(bases)[:, None]
+        b = _padded(plan.bases, nbp, 0, device)[:, None]
         if plan.mode == MODE_RESIDUAL:
             t = rows
         elif backend == "cuda":
@@ -232,5 +324,10 @@ def reconstruct(plan: DecodePlan, backend: str = "cuda",
     if plan.nb == 0:
         return np.zeros((0, plan.block_size), dtype=np.dtype(plan.dtype))
     if backend == "numpy":
-        return _reconstruct_numpy(plan)
-    return _run_device(plan, backend, resolve_device(device))
+        out = _reconstruct_numpy(plan)
+    else:
+        out = _run_device(plan, backend, resolve_device(device))
+    _backend_counters[backend].inc()
+    _stat_counters["host_calls" if backend == "numpy"
+                   else "device_calls"].inc()
+    return out

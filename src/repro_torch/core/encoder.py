@@ -222,7 +222,8 @@ _PROBE_BLOCKS = 8
 
 _TUNER = MeasuredTuner(
     version=ENCODE_AUTOTUNE_VERSION, env_var="REPRO_TORCH_ENCODE_AUTOTUNE",
-    validate_entry=lambda ent: ent.get("matcher") in MATCHERS, log=logger)
+    validate_entry=lambda ent: ent.get("matcher") in MATCHERS, log=logger,
+    name="encode")
 
 
 def _matcher_key(num_dict: int, n: int, dtype, device) -> str:

@@ -35,14 +35,14 @@ at segment restarts (``core.session``, ``core.select``).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..api import BACKENDS, CodecConfig
 from ..device import resolve_device
 from . import stream as stream_mod
-from .decode import BACKENDS as DECODE_BACKENDS
 from .encoder import MATCHERS
 from .ks import critical_distance
 from .select import SelectorConfig
@@ -54,7 +54,7 @@ __all__ = ["IdealemCodec", "ENCODE_BACKENDS"]
 
 _MODES = {"std": MODE_STD, "residual": MODE_RESIDUAL, "delta": MODE_DELTA}
 
-ENCODE_BACKENDS = ("numpy", "torch", "cuda")
+ENCODE_BACKENDS = BACKENDS
 
 
 @dataclass
@@ -96,9 +96,8 @@ class IdealemCodec:
             raise ValueError(f"mode must be one of {list(_MODES)}")
         if self.backend not in ENCODE_BACKENDS:
             raise ValueError(f"backend must be one of {ENCODE_BACKENDS}")
-        if self.decode_backend not in DECODE_BACKENDS:
-            raise ValueError(
-                f"decode_backend must be one of {DECODE_BACKENDS}")
+        if self.decode_backend not in BACKENDS:
+            raise ValueError(f"decode_backend must be one of {BACKENDS}")
         if self.matcher is not None and \
                 self.matcher not in MATCHERS + ("auto",):
             raise ValueError(f"matcher must be None or one of "
@@ -142,11 +141,42 @@ class IdealemCodec:
         return t, bases
 
     # ------------------------------------------------------------ public API
+    @classmethod
+    def from_config(cls, config: Union[CodecConfig, dict],
+                    device: str = "cuda") -> "IdealemCodec":
+        """Build a codec from one :class:`repro_torch.api.CodecConfig` (or
+        its JSON dict form).  ``device`` is an in-process choice and not
+        part of the config."""
+        if isinstance(config, dict):
+            config = CodecConfig.from_json(config)
+        return cls(device=device, **config.kwargs())
+
+    @property
+    def config(self) -> CodecConfig:
+        """The frozen :class:`repro_torch.api.CodecConfig` of this codec.
+
+        Round-trip stable: ``IdealemCodec.from_config(codec.config)``
+        makes identical decisions and bytes.  ``error_bound_rel`` is
+        resolved once at construction, so the config carries the absolute
+        ``error_bound``; a custom adaptive ``selector`` and the ``device``
+        are in-process knobs and are not captured."""
+        return CodecConfig(
+            mode=self.mode, block_size=self.block_size,
+            num_dict=self.num_dict, alpha=self.alpha, rel_tol=self.rel_tol,
+            use_minmax=self.use_minmax, use_ks=self.use_ks,
+            max_count=self.max_count, value_range=self.value_range,
+            backend=self.backend, matcher=self.matcher,
+            decode_seed=self.decode_seed, decode_backend=self.decode_backend,
+            error_bound=self.error_bound, adaptive=self.adaptive)
+
     def session(self, channels: Optional[int] = None,
                 emit_segments: bool = True, dtype=np.float64, plan=None,
                 container: bool = False) -> IdealemSession:
-        """Open a resumable streaming session with this configuration
-        (``plan`` and ``container`` are not ported yet and raise)."""
+        """Open a resumable streaming session with this configuration.
+        ``container=True`` makes ``finish()`` return one indexed
+        random-access container (``repro_torch.store``) over all channels
+        instead of the final segments.  ``plan`` (sharded sessions) is not
+        ported yet and raises."""
         return IdealemSession(self, channels=channels,
                               emit_segments=emit_segments, dtype=dtype,
                               plan=plan, container=container)

@@ -17,8 +17,24 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
+
 __all__ = ["ks_statistic_np", "ks_pvalue_np", "NpDictState", "np_init_state",
            "encode_decisions_np", "encode_decisions_mixed_np"]
+
+
+# Miss attribution: why a block failed to hit, by the deepest gate its
+# dictionary walk got past -- cold dictionary, the min/max gate (eq. 3),
+# the KS test, or the error-bound check.  Only this host walk sees the
+# gates' outcomes (the scans return hit/slot/overwrite alone), so these
+# counters fill on numpy-backend sessions and oracle runs only.
+_MISS_COUNTERS = {
+    reason: obs.registry().counter(
+        "repro_encode_miss_total",
+        "dictionary misses by deepest gate passed (host reference walk)",
+        labels={"reason": reason})
+    for reason in ("cold", "minmax", "ks", "error_bound")
+}
 
 
 def ks_statistic_np(x: np.ndarray, y: np.ndarray) -> float:
@@ -85,13 +101,18 @@ def encode_decisions_np(
     is_hit = np.zeros(nb, dtype=bool)
     slot = np.zeros(nb, dtype=np.int32)
     overwrite = np.zeros(nb, dtype=bool)
+    misses = {"cold": 0, "minmax": 0, "ks": 0, "error_bound": 0}
     for i in range(nb):
         x = blocks[i]
         xmin, xmax = float(np.min(x)), float(np.max(x))
         hit = -1
+        # deepest gate any entry got past (0 = no valid entry, 1 = min/max,
+        # 2 = KS, 3 = error bound)
+        depth = 0
         for s in range(num_dict):
             if dict_blocks[s] is None:
                 continue
+            depth = max(depth, 1)
             if use_minmax:
                 w = dmax[s] - dmin[s]
                 t = w * rel_tol
@@ -100,8 +121,10 @@ def encode_decisions_np(
                     and dmax[s] - t <= xmax <= dmax[s] + t
                 ):
                     continue
+            depth = max(depth, 2)
             if use_ks and ks_statistic_np(x, dict_blocks[s]) > d_crit:
                 continue
+            depth = max(depth, 3)
             if error_bound is not None:
                 # the stored raw row is what the no-permutation decode
                 # reproduces, so max|diff| over it (or over its running sum
@@ -116,12 +139,16 @@ def encode_decisions_np(
         if hit >= 0:
             is_hit[i], slot[i] = True, hit
         else:
+            misses[("cold", "minmax", "ks", "error_bound")[depth]] += 1
             s = state.count % num_dict
             overwrite[i] = state.count >= num_dict
             slot[i] = s
             dict_blocks[s] = x.copy()
             dmin[s], dmax[s] = xmin, xmax
             state.count += 1
+    for reason, n in misses.items():
+        if n:
+            _MISS_COUNTERS[reason].inc(n)
     out = (is_hit, slot, overwrite)
     return (out, state) if return_state else out
 

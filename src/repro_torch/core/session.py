@@ -34,6 +34,11 @@ mixed-mode scan (on ``backend="cuda"`` one launch of K1 with its ``chan``
 operand).  Matchers without a masked variant (``"ops"``, ``"auto"``) take
 a per-channel loop, as does every session while the environment variable
 ``REPRO_TORCH_ADAPTIVE_LOOP`` is set (the oracle arm for tests).
+
+``container=True`` also appends every emitted segment to an in-memory
+indexed container (``repro_torch.store``); ``finish()`` then returns that
+container.  Sessions count into the port's registry (``repro_torch.obs``)
+under the reference's names, once per feed, dispatch or segment.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from typing import TYPE_CHECKING, List, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from . import stream as stream_mod
 from .stream import StreamHeader
@@ -54,6 +60,35 @@ if TYPE_CHECKING:  # pragma: no cover
     from .idealem import IdealemCodec
 
 __all__ = ["IdealemSession", "MixedCohort", "PreparedChunk", "SessionStats"]
+
+# Process-wide aggregates over every session and channel; per-channel
+# detail stays on ``SessionStats``.
+_M = {
+    key: obs.registry().counter(f"repro_encode_{key}_total", help_text)
+    for key, help_text in {
+        "bytes_in": "raw sample bytes accepted by sessions",
+        "bytes_out": "emitted segment bytes (compressed size)",
+        "segments": "stream segments emitted",
+        "blocks": "blocks encoded",
+        "hits": "blocks replaced by a dictionary reference",
+        "mode_switches": "adaptive selector mode/scale switches applied",
+    }.items()
+}
+# Adaptive sessions: one dispatch a feed on the batched arm, one per
+# channel on the loop arm; the cohort histogram records the channels each
+# feed's dispatches covered.
+_M_DISPATCH = {
+    path: obs.registry().counter(
+        "repro_encode_dispatches_total",
+        "device encode-scan dispatches by path",
+        labels={"path": path})
+    for path in ("adaptive_batched", "adaptive_loop")
+}
+_M_COHORT = obs.registry().histogram(
+    "repro_encode_adaptive_cohort",
+    "channels covered per adaptive encode dispatch (cohort size)",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0,
+             1024.0))
 
 # Forces the per-channel loop in adaptive sessions (the port's own variable:
 # the reference package's REPRO_ADAPTIVE_LOOP is not read).
@@ -172,6 +207,8 @@ class MixedCohort:
             use_ks=self.use_ks, error_bound=eb, error_cumulative=err_cum,
             eb_on=eb_on, matcher=self.matcher, state=self.state, valid=valid)
         self.dispatches += 1
+        _M_DISPATCH["adaptive_batched"].inc()
+        _M_COHORT.observe(float(len(entries)))
         h, s, o = (v.cpu().numpy() for v in (h, s, o))  # the one sync
         return {lane: (h[lane, :p.shape[0]], s[lane, :p.shape[0]],
                        o[lane, :p.shape[0]])
@@ -232,14 +269,18 @@ class IdealemSession:
         if plan is not None:
             raise ValueError("encode plans (sharded sessions) are not ported "
                              "yet (ROADMAP Queue 1 item 9)")
-        if container:
-            raise ValueError("container output is not ported yet (ROADMAP "
-                             "Queue 1 item 7)")
         if channels is not None and channels < 1:
             raise ValueError("channels must be >= 1")
         self.codec = codec
         self.channels = channels
         self.emit_segments = emit_segments
+        self._writer = None
+        if container:
+            if codec.adaptive:
+                raise ValueError(
+                    "adaptive sessions do not support container output")
+            from ..store.container import ContainerWriter
+            self._writer = ContainerWriter()
         self.dtype = np.dtype(dtype)
         C = self._C = channels if channels is not None else 1
         self._tails = [np.zeros(0, dtype=self.dtype) for _ in range(C)]
@@ -380,7 +421,9 @@ class IdealemSession:
                     raw="error_bound" in kw)
             out, self._adapt_states[ci] = encode_decisions(
                 pt, state=self._adapt_states[ci], **kw)
+            _M_DISPATCH["adaptive_loop"].inc()
             outs.append(out)
+        _M_COHORT.observe(float(self._C))
         return [tuple(v.cpu().numpy() for v in out) for out in outs]
 
     def _apply_switch(self, ci: int, ev) -> None:
@@ -402,6 +445,9 @@ class IdealemSession:
         st = self._stats[ci]
         st.mode_switches += 1
         st.events.append(ev.as_dict())
+        _M["mode_switches"].inc()
+        obs.event("encode.mode_switch", attrs={"channel": ci,
+                                               **ev.as_dict()})
 
     def _feed_adaptive(self, chunk):
         if self._finished:
@@ -444,6 +490,10 @@ class IdealemSession:
         st = self._stats[ci]
         st.bytes_out += len(seg)
         st.segments += 1
+        _M["bytes_out"].inc(len(seg))
+        _M["segments"].inc()
+        if self._writer is not None:
+            self._writer.append(seg, channel=ci)
         return seg
 
     def _empty(self, ci: int):
@@ -479,6 +529,7 @@ class IdealemSession:
         self._tails = [j[nb * B:] for j in joined]
         for ci in range(self._C):
             self._stats[ci].bytes_in += arr[ci].nbytes
+        _M["bytes_in"].inc(arr.nbytes)
         if nb == 0:
             return None
         blocks = np.stack([j[: nb * B].reshape(nb, B) for j in joined])
@@ -497,11 +548,14 @@ class IdealemSession:
         stats and emit (or buffer) each channel's segment.  Always returns
         a per-channel list."""
         outs = []
+        total_hits = 0
         for ci in range(self._C):
             hit, slot, ovw = decisions[ci]
             st = self._stats[ci]
             st.blocks += prep.nb
-            st.hits += int(np.sum(hit))
+            n_hits = int(np.sum(hit))
+            st.hits += n_hits
+            total_hits += n_hits
             if self.emit_segments:
                 outs.append(self._emit(
                     ci, prep.blocks[ci], prep.payloads[ci], prep.bases[ci],
@@ -517,6 +571,8 @@ class IdealemSession:
                 buf["slot"].append(slot)
                 buf["ovw"].append(ovw)
                 outs.append(b"")
+        _M["blocks"].inc(prep.nb * self._C)
+        _M["hits"].inc(total_hits)
         return outs
 
     def feed(self, chunk) -> Union[bytes, List[bytes]]:
@@ -536,7 +592,12 @@ class IdealemSession:
     def finish(self) -> Union[bytes, List[bytes]]:
         """Close the stream(s): emit the final segment carrying the sample
         tail (segment mode) or assemble the whole classic one-segment stream
-        (``emit_segments=False``)."""
+        (``emit_segments=False``).
+
+        With ``container=True`` the return value is instead ONE packed
+        random-access container (``repro_torch.store``) holding every
+        segment of every channel; the final per-channel segments go
+        through its writer like any other."""
         if self._finished:
             raise RuntimeError("session already finished")
         self._finished = True
@@ -555,6 +616,8 @@ class IdealemSession:
                 ovw = np.concatenate(buf["ovw"])
             outs.append(self._emit(ci, raw, payload, bases, hit, slot, ovw,
                                    tail=self._tails[ci], more=False))
+        if self._writer is not None:
+            return self._writer.finalize()
         return outs[0] if self.channels is None else outs
 
     @property

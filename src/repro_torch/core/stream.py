@@ -49,7 +49,15 @@ from . import decode as decode_mod
 from .decode import MODE_DELTA, MODE_RESIDUAL, MODE_STD
 
 __all__ = ["StreamHeader", "StreamFormatError", "assemble_stream",
-           "parse_stream", "decode_stream"]
+           "parse_stream", "decode_stream", "segment_walk_count"]
+
+# Per-segment decision walks since import.  Tests read deltas of it to show
+# that the store's range decoder walks only the segments covering a range.
+_stats = {"segment_walks": 0}
+
+
+def segment_walk_count() -> int:
+    return _stats["segment_walks"]
 
 MAGIC = b"IDLM"
 VERSION = 2
@@ -339,6 +347,7 @@ def _walk_segment(buf, off, header, fill, hits_b, slots_b, ovws_b):
     skips over value bytes; value offsets are NOT recorded here -- they are
     reconstructed vectorized from the decision arrays with the same layout
     math the assembler uses.  Returns (new_off, new_fill)."""
+    _stats["segment_walks"] += 1
     try:
         return _walk_segment_inner(buf, off, header, fill, hits_b, slots_b,
                                    ovws_b)
@@ -410,18 +419,28 @@ def _walk_segment_inner(buf, off, header, fill, hits_b, slots_b, ovws_b):
 
 class SegmentRef(NamedTuple):
     """One walked segment of a (possibly multi-segment) stream: where it
-    lives in the buffer and which blocks it covers."""
+    lives in the buffer, which blocks it covers, and the FIFO fill counter
+    entering it.  The store's container index persists exactly this, so a
+    segment can later be walked again on its own."""
 
     header: StreamHeader
     start: int       # byte offset of the segment header
     body_start: int  # byte offset of the first decision byte
+    end: int         # byte offset one past the segment body
     i0: int          # index of the segment's first block within the walk
     n_blocks: int
+    fill_in: int     # FIFO fill counter entering the segment
 
 
-def _walk_all(buf: memoryview):
-    """Walk a chained (FLAG_MORE) sequence of segments from the start of
-    ``buf``; stops after the first non-MORE segment.
+def _walk_all(buf: memoryview, off: int = 0, fill: int = 0,
+              till_end: bool = False):
+    """Walk a chained (FLAG_MORE) sequence of segments starting at ``off``
+    with FIFO fill counter ``fill``.
+
+    Stops after the first non-MORE segment; with ``till_end`` it instead
+    walks until the buffer is exhausted (a partial chain, e.g. the segments
+    a live session has emitted so far, every one FLAG_MORE, which the
+    store's container writer appends incrementally).
 
     Returns ``(segs, is_hit, slot, ovw)``: per-segment ``SegmentRef``s plus
     the concatenated per-block decision arrays."""
@@ -429,18 +448,20 @@ def _walk_all(buf: memoryview):
     slots_b = bytearray()
     ovws_b = bytearray()
     segs: List[SegmentRef] = []
-    off = fill = 0
     while True:
         start = off
         header, off = _unpack_header(buf, off)
         if segs and not header.cont:
             fill = 0  # restart segment: fresh dictionary state
-        i0, body_start = len(hits_b), off
+        i0, body_start, fill_in = len(hits_b), off, fill
         off, fill = _walk_segment(buf, off, header, fill, hits_b, slots_b,
                                   ovws_b)
-        segs.append(SegmentRef(header, start, body_start, i0,
-                               len(hits_b) - i0))
-        if not header.more:
+        segs.append(SegmentRef(header, start, body_start, off, i0,
+                               len(hits_b) - i0, fill_in))
+        if till_end:
+            if off >= len(buf):
+                break
+        elif not header.more:
             break
     is_hit = np.frombuffer(hits_b, dtype=np.uint8).astype(bool)
     slot = np.frombuffer(slots_b, dtype=np.uint8).astype(np.int32)

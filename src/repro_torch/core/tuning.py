@@ -24,6 +24,7 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
+from .. import obs
 from ..errors import AutotuneCacheError
 
 __all__ = ["AutotuneCacheError", "MeasuredTuner", "best_of", "pow2_bucket"]
@@ -57,27 +58,39 @@ class MeasuredTuner:
     lookup and rewritten after each recorded probe.  ``validate_entry``
     rejects malformed entries on load; a stale ``version`` or corrupt file
     is discarded, never trusted.  Lookups and records hold an RLock.
-    ``stats`` counts probes (cold resolutions the caller measured) and hits
-    (served from the table).
+    Probes (cold resolutions the caller measured) and hits (served from the
+    table) are counted on the port's registry as
+    ``repro_tuning_{probes,hits}_total{tuner=name}``; ``stats`` is a dict
+    view of them.
     """
 
     def __init__(self, *, version: int, env_var: str,
                  validate_entry: Callable[[dict], bool],
-                 log: Optional[logging.Logger] = None):
+                 log: Optional[logging.Logger] = None,
+                 name: Optional[str] = None):
         self.version = version
         self.env_var = env_var
+        self.name = name if name is not None else env_var.lower()
         self._validate_entry = validate_entry
         self._log = log if log is not None else logger
         self._entries: Dict[str, dict] = {}
         self._loaded = False
-        self._probes = 0
-        self._hits = 0
         self.lock = threading.RLock()
+        reg = obs.registry()
+        self._probes = reg.counter(
+            "repro_tuning_probes_total",
+            "cold auto resolutions measured by a timing probe",
+            labels={"tuner": self.name})
+        self._hits = reg.counter(
+            "repro_tuning_hits_total",
+            "auto resolutions served from the recorded table",
+            labels={"tuner": self.name})
 
     @property
     def stats(self) -> Dict[str, int]:
         """``{"probes": int, "hits": int}`` (a snapshot)."""
-        return {"probes": self._probes, "hits": self._hits}
+        return {"probes": int(self._probes.value),
+                "hits": int(self._hits.value)}
 
     # ------------------------------------------------------------ persistence
     def _path(self) -> Optional[str]:
@@ -145,7 +158,8 @@ class MeasuredTuner:
         with self.lock:
             self._entries.clear()
             self._loaded = False
-            self._probes = self._hits = 0
+            self._probes.reset()
+            self._hits.reset()
 
     # ---------------------------------------------------------------- lookups
     def _ensure_loaded(self) -> None:
@@ -168,7 +182,7 @@ class MeasuredTuner:
         unwritable path is logged and the in-memory choice stands."""
         with self.lock:
             self._entries[key] = entry
-            self._probes += 1
+            self._probes.inc()
         path = self._path()
         if path:
             try:
@@ -186,7 +200,7 @@ class MeasuredTuner:
             self._ensure_loaded()
             ent = self._entries.get(key)
             if ent is not None:
-                self._hits += 1
+                self._hits.inc()
                 return ent
             return self.record(key, probe())
 
