@@ -2,7 +2,8 @@
 """Drive the PyTorch port of IDEALEM on one CUDA card: build, check, time.
 
 It drives both of the port's paths: the codec round trip with its indexed
-store (phases 3-12) and the LM serve path (phases 13-14).
+store and serving services (phases 3-15) and the LM serve path (phases
+16-17).
 
 Run from the root of a checkout, with no arguments:
 
@@ -110,7 +111,37 @@ Phases, each fatal on failure (no failure is caught):
               delta lanes on the cumulative gate.  Prints MB/s, hit rate,
               switches by channel kind, the selectors' and the staging's
               host seconds and a ``[profile]`` line of the encode.
-13. K4     -- the flash_decode kernel against its plain version on the
+13. coalesce -- a fleet of PMU streams through one ``StreamCoalescer`` on
+              ``backend="cuda"``, per Table I configuration: 256 streams of
+              2**18 f64 samples (64 joining a round: the slot table grows
+              64 -> 128 -> 256 under a live carry), chunks of a seeded
+              6,000-10,000 samples submitted round robin
+              (``FlushPolicy(max_batch_blocks=65536)``, ``block_bucket``
+              32), 16 streams replaced by new ids midway.  Checks: one K1
+              launch a flush that holds blocks; 16 seeded streams == a
+              per-stream ``CompressionService(backend="cuda")`` fed the
+              runs the flushes cut, the first 4 == ``backend="numpy"``;
+              lengths, tails and miss blocks (std) or bases exact.  Prints
+              flushes, ``nb_pad`` a flush, MB/s, ratio, the host seconds
+              in ``prepare``/``commit`` and a ``[profile]`` line.
+14. coalesce-adaptive -- 64 adaptive streams (the MAG configuration,
+              MAG traffic on even rows, ANG on odd) of 2**18 samples, the
+              same chunking, a flush a round: one K1 launch with its chan
+              operand a flush; every stream == a per-stream adaptive
+              session fed the same runs.
+15. service -- the three containers of phase 10 attached to a
+              ``DecompressionService``, its 4,096 range requests submitted
+              one by one with ``FlushPolicy(max_batch_streams=256)`` at
+              pipeline depth 1 and 2 on ``backend="cuda"``, at depth 2 on
+              ``backend="auto"`` (prints ``autotune_choices()``), and on
+              ANG_delta with the container attached under two ids.
+              Checks: every answer == phase 10's ``decode_ranges`` on cuda
+              bitwise, and on numpy for its first 512; K2 launches == the
+              ANG_delta cuda units; two attaches dispatch as one.  Prints
+              requests/s, MB/s, dispatches, padded / requested rows, chunk
+              cache hits and misses, the four stage seconds and a
+              ``[profile]`` line.
+16. K4     -- the flash_decode kernel against its plain version on the
               card, within 1e-5: the JAX test's shapes, C in {1, 33, 700,
               2048}, G in {1, 4, 16}, hd in {64, 128}, f32/bf16/f16 caches,
               rows masked by ``decode_attention``'s ring formula (plain,
@@ -118,7 +149,7 @@ Phases, each fatal on failure (no failure is caught):
               mean of V); shapes split along C with a ragged last split,
               G=6 in head groups and C=32,768 at B=1.  Prints the split
               counts.
-14. serve  -- granite-3-8b at full width (weights from a seeded
+17. serve  -- granite-3-8b at full width (weights from a seeded
               ``torch.Generator``) through ``ServeEngine.generate``: 8
               numpy-seeded prompts of 256 tokens, 64 greedy tokens,
               max_seq 2048.  Checks: one K4 launch per layer and step
@@ -133,7 +164,7 @@ Phases, each fatal on failure (no failure is caught):
               (device operations a step; K4's and its combine kernel's
               device ms), and the host's milliseconds to issue those steps
               unprofiled beside their wall time.
-15. timing -- each kernel at a main-path shape against its plain version
+18. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
@@ -223,6 +254,22 @@ STORE_REQUESTS, STORE_BATCH, STORE_MAX_BLOCKS = 4096, 256, 4096
 # backend="numpy" reconstructs each call's padded batch (~2**20 rows) on
 # the host, ~6 s a call on ANG: it is timed on the first calls only.
 STORE_NUMPY_CALLS = 2
+# The coalesce phases: a fleet of 120 Hz PMU channels ingesting through one
+# StreamCoalescer (FlushPolicy's default max_batch_streams), each stream
+# submitting chunks of a seeded length in COALESCE_CHUNK samples.  The slot
+# table starts at COALESCE_CAPACITY and grows; COALESCE_RECYCLED streams
+# are replaced by new ids midway.
+COALESCE_STREAMS, COALESCE_SAMPLES = 256, 2 ** 18
+COALESCE_CHUNK = (6000, 10000)
+COALESCE_CAPACITY, COALESCE_RECYCLED = 64, 16
+COALESCE_MAX_BLOCKS, COALESCE_BUCKET = 65536, 32
+COALESCE_CHECKED, COALESCE_ORACLE = 16, 4
+COALESCE_ADAPTIVE_STREAMS = 64
+COALESCE_PROFILE_ROUNDS = 6
+# The service phase: [store]'s range requests through DecompressionService
+# (FlushPolicy(max_batch_streams=SERVICE_STREAMS)); the profiler traces
+# the first SERVICE_PROFILED of them.
+SERVICE_STREAMS, SERVICE_PROFILED = 256, 512
 # The serve phase: granite-3-8b at full width, a few requests of a
 # realistic prompt length at the engine's default max_seq.
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "granite-3-8b", 8, 256, 64
@@ -688,22 +735,22 @@ def phase_golden(dev):
         "cuda decode == numpy decode")
 
 
-def make_traffic(cfg_name, channels=range(CHANNELS)):
+def make_traffic(cfg_name, channels=range(CHANNELS), samples=SAMPLES):
     """The configuration's traffic for ``channels`` (rows in that order;
-    channel c takes template c % 4 and seed c)."""
+    channel c takes template c % 4 and seed c), ``samples`` a channel."""
     from repro_torch.data.synthetic import pmu_angle, pmu_magnitude
-    x = np.empty((len(channels), SAMPLES), dtype=np.float64)
-    rate = SAMPLES / REF_SAMPLES
+    x = np.empty((len(channels), samples), dtype=np.float64)
+    rate = samples / REF_SAMPLES
     for i, c in enumerate(channels):
         if cfg_name == "MAG":
             level, noise, tap_step, shifts = MAG_TEMPLATES[c % 4]
             x[i] = pmu_magnitude(
-                SAMPLES, level=level, noise=noise, tap_step=tap_step,
+                samples, level=level, noise=noise, tap_step=tap_step,
                 n_shifts=round(shifts * rate), n_taps=round(MAG_TAPS * rate),
                 seed=c)
         else:
             slope, noise = ANG_TEMPLATES[c % 4]
-            x[i] = pmu_angle(SAMPLES, slope=slope, noise=noise, seed=c)
+            x[i] = pmu_angle(samples, slope=slope, noise=noise, seed=c)
     return x
 
 
@@ -1081,7 +1128,9 @@ def phase_store(torch, dev, card):
     container written to a file and opened through mmap, a full read and
     STORE_REQUESTS range reads on ``backend="cuda"`` against
     ``backend="numpy"``, and the port's telemetry.  Returns the (K1, K2)
-    launches of its paths and the K2 operands of the ANG_delta reads."""
+    launches of its paths, the K2 operands of the ANG_delta reads and, by
+    configuration, the container and its range answers (``cuda``, and
+    ``numpy`` on the first calls) for the service phase."""
     import os
     import tempfile
     from repro_torch import IdealemCodec, obs
@@ -1097,7 +1146,7 @@ def phase_store(torch, dev, card):
                               {"backend": "cuda"})}
     before = {k: reg.get_value(*v) for k, v in counted.items()}
     own = dict.fromkeys(counted, 0)
-    k2_operands = {}
+    k2_operands, archives = {}, {}
     step = SAMPLES // CHUNKS
     k1.launches = k2.launches = 0
 
@@ -1248,6 +1297,7 @@ def phase_store(torch, dev, card):
                     names=('seq_cumsum', 'HtoD', 'DtoH', 'indexSelect',
                            'gather')))} [{card}]""")
             store.close()
+            archives[cfg_name] = (blob, got, got_np)
             del x, full, ref, got, got_np, mem, blob
 
     # 4. the port's telemetry over the phase
@@ -1261,7 +1311,7 @@ def phase_store(torch, dev, card):
         f"exposition lines; counters == the phase's counts {json.dumps(own)}"
         f"; repro_encode_miss_total by reason (numpy oracle runs) "
         f"{json.dumps(misses)}")
-    return (k1.launches, k2.launches), k2_operands
+    return (k1.launches, k2.launches), k2_operands, archives
 
 
 def phase_auto(torch, dev, card, first_chunks):
@@ -1532,6 +1582,502 @@ def mixed_first_feed(codec, x):
         pay[c, :, :p.shape[1]] = p
         nf[c], d_crit[c] = p.shape[1], cdc.d_crit
     return pay, nf, d_crit, codec
+
+
+@contextlib.contextmanager
+def k1_calls(k1):
+    """Records ``(xs shape, chan given)`` of every call of K1's wrapper
+    made inside the block."""
+    seen, real = [], k1.encode_scan
+
+    def spy(xs, valid, state, **kw):
+        seen.append((tuple(xs.shape), kw.get("chan") is not None))
+        return real(xs, valid, state, **kw)
+
+    k1.encode_scan = spy
+    try:
+        yield seen
+    finally:
+        k1.encode_scan = real
+
+
+@contextlib.contextmanager
+def host_seconds(**targets):
+    """Host seconds spent inside each ``name=(class, method)`` while the
+    block runs."""
+    acc = dict.fromkeys(targets, 0.0)
+    real = {k: getattr(cls, m) for k, (cls, m) in targets.items()}
+
+    def timed(key):
+        fn = real[key]
+
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return run
+
+    for k, (cls, m) in targets.items():
+        setattr(cls, m, timed(k))
+    try:
+        yield acc
+    finally:
+        for k, (cls, m) in targets.items():
+            setattr(cls, m, real[k])
+
+
+def histogram_sum(name, labels=None):
+    from repro_torch import obs
+    for v in obs.registry().snapshot().get(name, {"values": []})["values"]:
+        if v["labels"] == (labels or {}):
+            return v["sum"]
+    return 0.0
+
+
+def coalesce_traffic(co, x, streams, spare=(), rounds=None, seed=18):
+    """Drive ``co`` the way a fleet of PMU streams does: the streams (rows
+    of ``x``, ids ``s<row>``) join ``co.capacity`` at a time, one wave a
+    round (each ramp round ends in an explicit flush, as a deadline tick
+    would, so the slot table grows under a live carry); each live stream
+    submits its next chunk in turn, its length drawn from ``seed`` in
+    COALESCE_CHUNK.  At the first flush after the streams are halfway
+    through, the first len(``spare``) of them close and the ``spare`` rows
+    open under new ids (recycled slots) and feed the samples that remain.
+    Stops after ``rounds`` rounds or when every stream is fed; then flushes
+    and closes every open stream.  Returns ``(segments, feeds, fed)`` by
+    id: ``feeds`` are the sample runs the flushes took from each stream
+    (what a per-stream session must be fed to emit the same segments),
+    ``fed`` its samples."""
+    rng = np.random.default_rng(seed)
+    limit = {f"s{r}": x.shape[1] for r in streams}
+    segs = {sid: [] for sid in limit}
+    feeds = {sid: [] for sid in limit}
+    staged = {sid: [] for sid in limit}
+    fed = dict.fromkeys(limit, 0)
+    waiting, live, wave = list(limit), [], co.capacity
+
+    def cut(res):
+        for sid, runs in staged.items():
+            if runs:
+                feeds[sid].append(np.concatenate(runs))
+                staged[sid] = []
+        for sid, seg in res.items():
+            segs[sid].append(seg)
+
+    spare = [f"s{r}" for r in spare]
+    r = 0
+    while (rounds is None or r < rounds) and (waiting or any(
+            fed[sid] < limit[sid] for sid in live)):
+        ramp = bool(waiting)
+        for sid in waiting[:wave]:
+            co.open_stream(sid)
+            live.append(sid)
+        waiting = waiting[wave:]
+        for sid in live:
+            n = min(int(rng.integers(*COALESCE_CHUNK, endpoint=True)),
+                    limit[sid] - fed[sid])
+            if n <= 0:
+                continue
+            row = int(sid[1:])
+            chunk = x[row, fed[sid]:fed[sid] + n]
+            fed[sid] += n
+            staged[sid].append(chunk)
+            res = co.submit(sid, chunk)
+            if res is None:
+                continue
+            cut(res)
+            if spare and fed[live[0]] >= x.shape[1] // 2:
+                # nothing is staged right after a flush: the closes below
+                # emit their tails and launch nothing
+                for old, new in zip(live[:len(spare)], spare):
+                    segs[old].append(co.close_stream(old))
+                    co.open_stream(new)
+                    limit[new] = x.shape[1] - fed[old]
+                    segs[new], feeds[new], staged[new] = [], [], []
+                    fed[new] = 0
+                live = live[len(spare):] + spare
+                spare = []
+                break
+        if ramp:
+            cut(co.flush())
+        r += 1
+    cut(co.flush())
+    for sid in live:
+        segs[sid].append(co.close_stream(sid))
+    return ({sid: b"".join(v) for sid, v in segs.items()}, feeds, fed)
+
+
+def profile_coalesce(torch, make, x, streams):
+    """``device_profile`` of the first COALESCE_PROFILE_ROUNDS rounds of
+    ``coalesce_traffic`` on a fresh coalescer from ``make()``, with the
+    host seconds of the sessions' ``prepare`` and ``commit`` and the rest
+    of the flushes (the decide: batch staging, copies, K1, the sync)."""
+    from repro_torch.core.session import IdealemSession
+    made = []
+
+    def drive():
+        made.append(make())
+        coalesce_traffic(made[-1], x, streams,
+                         rounds=COALESCE_PROFILE_ROUNDS)
+
+    with host_seconds(prepare=(IdealemSession, "prepare"),
+                      commit=(IdealemSession, "commit")) as host:
+        s0 = histogram_sum("repro_encode_flush_seconds")
+        out = device_profile(torch, drive,
+                             names=("encode_scan", "HtoD", "DtoH", "Sort"))
+        flush_s = histogram_sum("repro_encode_flush_seconds") - s0
+    runs = out["runs"]
+    out.update(host_prepare_s=host["prepare"] / runs,
+               host_commit_s=host["commit"] / runs,
+               host_decide_s=(flush_s - host["prepare"] - host["commit"])
+               / runs, rounds=COALESCE_PROFILE_ROUNDS)
+    mixed = made[-1]._mixed
+    if mixed is not None:
+        out["cohort_staging_s"] = mixed.stage_s
+    return out
+
+
+def phase_coalesce(torch, dev, card):
+    """[coalesce]: per Table I configuration, COALESCE_STREAMS live streams
+    of COALESCE_SAMPLES through one ``StreamCoalescer`` on ``backend="cuda"``
+    (capacity 64, grown twice), COALESCE_RECYCLED of them replaced midway.
+    One K1 launch a flush that holds blocks.  Checks: K1 launches == such
+    flushes; COALESCE_CHECKED seeded streams == a per-stream
+    ``CompressionService(backend="cuda")`` fed the same runs, the first
+    COALESCE_ORACLE == ``backend="numpy"``, and decode with exact miss
+    blocks (std) or bases, and tails.  Returns the K1 launches."""
+    from repro_torch import obs
+    from repro_torch.core.session import IdealemSession
+    from repro_torch.core.stream import _walk_all, decode_stream
+    from repro_torch.kernels import encode_step as k1
+    from repro_torch.serve import (CompressionService, FlushPolicy,
+                                   StreamCoalescer)
+    reg = obs.registry()
+    total = 0
+    n_rows = COALESCE_STREAMS + COALESCE_RECYCLED
+    streams = range(COALESCE_STREAMS)
+    spare = range(COALESCE_STREAMS, n_rows)
+    policy = FlushPolicy(max_batch_streams=COALESCE_STREAMS,
+                         max_batch_blocks=COALESCE_MAX_BLOCKS)
+    for cfg_name, cfg in CONFIGS.items():
+        x = make_traffic(cfg_name, range(n_rows), COALESCE_SAMPLES)
+        B = cfg["block_size"]
+        co = StreamCoalescer(policy=policy, capacity=COALESCE_CAPACITY,
+                             block_bucket=COALESCE_BUCKET, device=dev, **cfg)
+        f0 = reg.get_value("repro_encode_flushes_total")
+        s0 = histogram_sum("repro_encode_flush_seconds")
+        k1.launches = 0
+        with k1_calls(k1) as calls, host_seconds(
+                prepare=(IdealemSession, "prepare"),
+                commit=(IdealemSession, "commit")) as host:
+            t0 = time.perf_counter()
+            segs, feeds, fed = coalesce_traffic(co, x, streams, spare)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = k1.launches
+        flushes = reg.get_value("repro_encode_flushes_total") - f0
+        flush_s = histogram_sum("repro_encode_flush_seconds") - s0
+        total += launches
+        check(launches == flushes == len(calls) and all(
+            not chan for _, chan in calls),
+            f"coalesce {cfg_name}: one static K1 launch a flush with blocks "
+            f"({launches} launches, {flushes} flushes, {len(calls)} calls)")
+        grown = sorted({sh[0] for sh, _ in calls})
+        check(co.capacity == COALESCE_STREAMS and len(segs) == n_rows
+              and grown[0] == COALESCE_CAPACITY and len(grown) >= 3,
+              f"coalesce {cfg_name}: capacity {co.capacity} (flushed at "
+              f"{grown}), {len(segs)} streams")
+        # per-stream services fed the runs each stream's flushes cut
+        pick = np.random.default_rng(19).choice(
+            n_rows, COALESCE_CHECKED, replace=False)
+        pick = sorted({*map(int, pick[:-2]), 0, n_rows - 1})  # recycled, new
+        svc = CompressionService(device=dev, **cfg)
+        host_svc = CompressionService(backend="numpy", device=dev, **cfg)
+        for k, row in enumerate(pick):
+            sid = f"s{row}"
+            for one in ((svc, host_svc) if k < COALESCE_ORACLE else (svc,)):
+                one.open_stream(sid)
+                want = b"".join([one.feed(sid, f) for f in feeds[sid]]
+                                + [one.close_stream(sid)])
+                check(segs[sid] == want,
+                      f"coalesce {cfg_name} {sid}: stream == per-stream "
+                      f"service ({one._defaults.get('backend', 'cuda')})")
+            y = decode_stream(segs[sid], backend="numpy")
+            xs = x[row, :fed[sid]]
+            nb = fed[sid] // B
+            check(y.shape == xs.shape and np.array_equal(
+                y[nb * B:], xs[nb * B:]),
+                f"coalesce {cfg_name} {sid}: length and tail")
+            yb, xb = y[:nb * B].reshape(nb, B), xs[:nb * B].reshape(nb, B)
+            if cfg["mode"] == "std":
+                hit = _walk_all(memoryview(segs[sid]))[1]
+                check(np.array_equal(yb[~hit], xb[~hit]),
+                      f"coalesce {cfg_name} {sid}: miss blocks exact")
+            else:
+                check(np.array_equal(yb[:, 0], xb[:, 0]),
+                      f"coalesce {cfg_name} {sid}: block bases exact")
+        nbytes = 8 * sum(fed.values())
+        nb_pads = [shape[1] for shape, _ in calls]
+        st = co.stats()
+        res = {"streams": len(segs), "samples_fed": sum(fed.values()),
+               "flushes": flushes, "k1_launches": launches,
+               "capacity_per_flush": sorted({sh[0] for sh, _ in calls}),
+               "blocks": st["blocks"], "blocks_per_flush":
+                   st["blocks"] / max(flushes, 1),
+               "nb_pad_per_flush": nb_pads,
+               "encode_MBps": nbytes / wall / 1e6, "wall_s": wall,
+               "ratio": nbytes / sum(len(b) for b in segs.values()),
+               "hit_rate": st["hit_rate"], "flush_s": flush_s,
+               "host_prepare_s": host["prepare"],
+               "host_commit_s": host["commit"]}
+        say(f"[coalesce] {cfg_name} {len(segs)} streams x "
+            f"{COALESCE_SAMPLES} f64: {json.dumps(res)} [{card}]")
+        say(f"[coalesce] {cfg_name} checks passed: K1 launches == flushes; "
+            f"{len(pick)} streams {pick} == per-stream cuda service, the "
+            f"first {COALESCE_ORACLE} == numpy service; tails, "
+            f"{'miss blocks' if cfg['mode'] == 'std' else 'bases'} exact")
+        # the first rounds again, on a fresh coalescer, under the profiler
+        out = profile_coalesce(torch, lambda: StreamCoalescer(
+            policy=policy, capacity=COALESCE_CAPACITY,
+            block_bucket=COALESCE_BUCKET, device=dev, **cfg), x, streams)
+        say(f"[profile] {cfg_name} coalesce, {COALESCE_PROFILE_ROUNDS} "
+            f"rounds: {json.dumps(out)} [{card}]")
+        del x, segs, feeds
+    return total
+
+
+def phase_coalesce_adaptive(torch, dev, card):
+    """[coalesce-adaptive]: COALESCE_ADAPTIVE_STREAMS adaptive streams (the
+    MAG configuration, MAG traffic on even rows, ANG on odd) of
+    COALESCE_SAMPLES through one ``StreamCoalescer(adaptive=True)``,
+    capacity 16 grown twice, a flush a round.  Checks: one K1 launch with
+    its chan operand a flush with blocks; every stream == a per-stream
+    adaptive session fed the same runs.  Returns the K1 launches."""
+    from repro_torch import IdealemCodec, obs
+    from repro_torch.core.select import ChannelSelector
+    from repro_torch.core.session import IdealemSession
+    from repro_torch.kernels import encode_step as k1
+    from repro_torch.serve import FlushPolicy, StreamCoalescer
+    reg = obs.registry()
+    n = COALESCE_ADAPTIVE_STREAMS
+    x = np.empty((n, COALESCE_SAMPLES), dtype=np.float64)
+    x[0::2] = make_traffic("MAG", range(0, n, 2), COALESCE_SAMPLES)
+    x[1::2] = make_traffic("ANG", range(1, n, 2), COALESCE_SAMPLES)
+    cfg = dict(adaptive=True, **CONFIGS["MAG"])
+    co = StreamCoalescer(
+        policy=FlushPolicy(max_batch_streams=n,
+                           max_batch_blocks=COALESCE_MAX_BLOCKS),
+        capacity=n // 4, block_bucket=COALESCE_BUCKET, device=dev, **cfg)
+    f0 = reg.get_value("repro_encode_flushes_total")
+    s0 = histogram_sum("repro_encode_flush_seconds")
+    k1.launches = 0
+    with k1_calls(k1) as calls, host_seconds(
+            prepare=(IdealemSession, "prepare"),
+            commit=(IdealemSession, "commit"),
+            select_decide=(ChannelSelector, "decide"),
+            select_observe=(ChannelSelector, "observe")) as host:
+        t0 = time.perf_counter()
+        segs, feeds, fed = coalesce_traffic(co, x, range(n))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = k1.launches
+    flushes = reg.get_value("repro_encode_flushes_total") - f0
+    flush_s = histogram_sum("repro_encode_flush_seconds") - s0
+    check(launches == flushes == co._mixed.dispatches == len(calls)
+          and all(chan for _, chan in calls),
+          f"coalesce-adaptive: one K1 chan launch a flush ({launches} "
+          f"launches, {flushes} flushes, {co._mixed.dispatches} dispatches)")
+    grown = sorted({sh[0] for sh, _ in calls})
+    check(co.capacity == n and grown[0] == n // 4 and len(grown) >= 3,
+          f"coalesce-adaptive: capacity {co.capacity} (flushed at {grown})")
+    codec = IdealemCodec(device=dev, **cfg)
+    for row in range(n):
+        sid = f"s{row}"
+        sess = codec.session()
+        want = b"".join([sess.feed(f) for f in feeds[sid]] + [sess.finish()])
+        check(segs[sid] == want, f"coalesce-adaptive {sid}: stream == "
+              "per-stream adaptive session")
+    st = [co.stats(f"s{r}") for r in range(n)]
+    nbytes = 8 * sum(fed.values())
+    res = {"streams": n, "flushes": flushes, "k1_chan_launches": launches,
+           "capacity_per_flush": sorted({sh[0] for sh, _ in calls}),
+           "padded_width_per_flush": sorted({sh[2] for sh, _ in calls}),
+           "lane_widths_at_end": sorted(set(co._mixed.lane_n.tolist())),
+           "nb_pad_per_flush": [sh[1] for sh, _ in calls],
+           "blocks": sum(s["blocks"] for s in st),
+           "encode_MBps": nbytes / wall / 1e6, "wall_s": wall,
+           "ratio": nbytes / sum(len(b) for b in segs.values()),
+           "switches": {k: sum(s["mode_switches"] for s in st[i::2])
+                        for k, i in (("MAG", 0), ("ANG", 1))},
+           "flush_s": flush_s, "host_prepare_s": host["prepare"],
+           "host_commit_s": host["commit"],
+           "host_selectors_s": host["select_decide"]
+           + host["select_observe"],
+           "cohort_staging_s": co._mixed.stage_s}
+    say(f"[coalesce-adaptive] MAG+ANG {n} streams x {COALESCE_SAMPLES} f64:"
+        f" {json.dumps(res)} [{card}]")
+    say(f"[coalesce-adaptive] checks passed: one K1 chan launch a flush; "
+        f"{n} streams == per-stream adaptive sessions")
+    out = profile_coalesce(torch, lambda: StreamCoalescer(
+        policy=FlushPolicy(max_batch_streams=n,
+                           max_batch_blocks=COALESCE_MAX_BLOCKS),
+        capacity=n // 4, block_bucket=COALESCE_BUCKET, device=dev, **cfg),
+        x, range(n))
+    say(f"[profile] coalesce-adaptive, {COALESCE_PROFILE_ROUNDS} rounds: "
+        f"{json.dumps(out)} [{card}]")
+    return launches
+
+
+def serve_ranges(svc, reqs, store_of=lambda k: "s"):
+    """Every ``(channel, start, stop)`` of ``reqs`` through ``svc.submit``
+    (request id = index), then ``svc.close()``: ``(answers by index, wall
+    seconds ending when the last answer is on the host)``."""
+    out = {}
+    t0 = time.perf_counter()
+    for k, (c, i, j) in enumerate(reqs):
+        out.update(svc.submit(str(k), store_of(k), i, j, channel=c) or {})
+    out.update(svc.close())
+    wall = time.perf_counter() - t0
+    check(not svc.last_errors and len(out) == len(reqs),
+          f"service: {len(out)} answers of {len(reqs)}, errors "
+          f"{list(svc.last_errors)[:3]}")
+    return {int(k): v for k, v in out.items()}, wall
+
+
+@contextlib.contextmanager
+def reconstruct_units():
+    """Records ``(backend, plan blocks)`` of every reconstruct dispatch
+    made inside the block (from any thread)."""
+    from repro_torch.core import decode as decode_mod
+    seen, real = [], decode_mod.reconstruct
+
+    def spy(plan, backend="cuda", device=None):
+        seen.append((backend, plan.nb))
+        return real(plan, backend=backend, device=device)
+
+    decode_mod.reconstruct = spy
+    try:
+        yield seen
+    finally:
+        decode_mod.reconstruct = real
+
+
+def phase_service(torch, dev, card, archives):
+    """[service]: the three containers of [store] attached to a
+    ``DecompressionService``, its STORE_REQUESTS range requests submitted
+    one by one with ``FlushPolicy(max_batch_streams=SERVICE_STREAMS)`` at
+    pipeline depth 1 and 2 on ``backend="cuda"``, once more on
+    ``backend="auto"``, and on ANG_delta with the container attached
+    under two ids (requests alternating).  Checks: every answer ==
+    ``decode_ranges(backend="cuda")`` of [store] bitwise, and == numpy on
+    its first calls; K2 launches == the ANG_delta cuda units; the merged
+    run dispatches as the single-store run.  Returns the K2 launches."""
+    from repro_torch import obs
+    from repro_torch.core import decode as decode_mod
+    from repro_torch.core.decode import _pow2
+    from repro_torch.kernels import seq_cumsum as k2
+    from repro_torch.serve import DecompressionService, FlushPolicy
+    from repro_torch.store import Container
+    reg = obs.registry()
+    stages = ("plan", "gather", "reconstruct", "emit")
+    total = 0
+
+    def run(blob, got, got_np, label, stores=1, **kw):
+        nonlocal total
+        store = Container(blob)
+        svc = DecompressionService(device=dev, **kw)
+        for i in range(stores):
+            svc.attach(f"s{i}", store)
+        reqs = store_requests(store.total_blocks(0))
+        s0 = {st: histogram_sum("repro_serve_stage_seconds",
+                                {"stage": st}) for st in stages}
+        k2.launches = 0
+        with reconstruct_units() as units:
+            out, wall = serve_ranges(svc, reqs,
+                                     lambda k: f"s{k % stores}")
+        launches = k2.launches
+        delta = store.header_of(0).mode == 2
+        cuda_units = sum(b == "cuda" for b, _ in units)
+        explicit = kw.get("backend", "cuda") == "cuda"
+        # "auto" launches K2 in its probes too: its count is not checked
+        check(not explicit or launches == (cuda_units if delta else 0),
+              f"service {label}: K2 launches {launches} == ANG_delta cuda "
+              f"units ({cuda_units if delta else 0})")
+        for k, y in out.items():
+            check(y.tobytes() == got[k].tobytes() and (
+                k >= len(got_np) or y.tobytes() == got_np[k].tobytes()),
+                f"service {label}: request {k} == decode_ranges (cuda"
+                f"{', numpy' if k < len(got_np) else ''})")
+        blocks = sum(j - i for _, i, j in reqs)
+        B = store.header_of(0).block_size
+        res = {"requests": len(reqs), "requests_per_s": len(reqs) / wall,
+               "MBps": blocks * B * 8 / wall / 1e6, "wall_s": wall,
+               "flushes": svc.stats["flushes"],
+               "dispatches": svc.stats["dispatches"],
+               "units_by_backend": {b: sum(u == b for u, _ in units)
+                                    for b in sorted({u for u, _ in units})},
+               "k2_launches": launches,
+               "plan_rows_per_requested": sum(n for _, n in units) / blocks,
+               "padded_rows_per_requested":
+                   sum(_pow2(n) for _, n in units) / blocks,
+               "cache_hits": svc.stats["cache_hits"],
+               "cache_misses": svc.stats["cache_misses"],
+               "inflight_peak": svc.stats["inflight_peak"],
+               "stage_seconds": {st: histogram_sum(
+                   "repro_serve_stage_seconds", {"stage": st}) - s0[st]
+                   for st in stages}}
+        total += launches if explicit else 0
+        return res, reqs, store
+
+    for cfg_name, (blob, got, got_np) in archives.items():
+        policy = dict(max_batch_streams=SERVICE_STREAMS)
+        for depth in (1, 2):
+            res, reqs, store = run(
+                blob, got, got_np, f"{cfg_name} depth {depth}",
+                policy=FlushPolicy(pipeline_depth=depth, **policy))
+            if depth == 1:
+                single = res
+            say(f"[service] {cfg_name} cuda depth {depth}: "
+                f"{json.dumps(res)} [{card}]")
+        decode_mod.reset_autotune()
+        res, _, _ = run(blob, got, got_np, f"{cfg_name} auto",
+                        policy=FlushPolicy(pipeline_depth=2, **policy),
+                        backend="auto")
+        say(f"[service] {cfg_name} auto depth 2: {json.dumps(res)} "
+            f"autotune_choices {json.dumps(decode_mod.autotune_choices())} "
+            f"times_us {json.dumps(decode_mod._TUNER.choices('times_us'))}"
+            f" [{card}]")
+        if cfg_name == "ANG_delta":
+            res, _, _ = run(blob, got, got_np, f"{cfg_name} two stores",
+                            stores=2, policy=FlushPolicy(**policy))
+            check(res["dispatches"] == single["dispatches"]
+                  and res["cache_misses"] <= single["cache_misses"],
+                  f"service {cfg_name}: two attaches merge as one store "
+                  f"({res['dispatches']} vs {single['dispatches']} "
+                  f"dispatches) and share the chunk cache")
+            say(f"[service] {cfg_name} cuda depth 1, two stores: "
+                f"{json.dumps(res)} [{card}]")
+        head = reqs[:SERVICE_PROFILED]
+
+        def profiled():
+            svc = DecompressionService(
+                device=dev, policy=FlushPolicy(pipeline_depth=2, **policy))
+            svc.attach("s", store)
+            serve_ranges(svc, head)
+
+        out = device_profile(torch, profiled,
+                             names=("seq_cumsum", "HtoD", "DtoH",
+                                    "indexSelect", "gather"))
+        say(f"[profile] {cfg_name} service depth 2, {len(head)} requests: "
+            f"{json.dumps(out)} [{card}]")
+    say(f"[service] checks passed: every answer at depth 1, 2 and auto == "
+        f"decode_ranges(cuda) bitwise (numpy on the first "
+        f"{STORE_NUMPY_CALLS * STORE_BATCH}); K2 launches == ANG_delta cuda "
+        f"units; telemetry {reg.get_value('repro_serve_requests_total')} "
+        f"requests")
+    return total
 
 
 def time_k3(torch, dev, C, D, n, sorted_rows=False):
@@ -2085,12 +2631,16 @@ def main() -> int:
     del mag
     launches["encode_step"] += int(n1)
     launches["seq_cumsum"] += int(n2)
-    (n1, n2), k2_reads = phase_store(torch, dev, card)
+    (n1, n2), k2_reads, archives = phase_store(torch, dev, card)
     launches["encode_step"] += n1
     launches["seq_cumsum"] += n2
     phase_auto(torch, dev, card, first_chunks)
     n1, first_chunks["adaptive"] = phase_adaptive(torch, dev, card)
     launches["encode_step"] += n1
+    launches["encode_step"] += phase_coalesce(torch, dev, card)
+    launches["encode_step"] += phase_coalesce_adaptive(torch, dev, card)
+    launches["seq_cumsum"] += phase_service(torch, dev, card, archives)
+    del archives
     phase_k4(torch, dev)
     launches["flash_decode"] = phase_serve(torch, dev, card)
     timed = phase_timing(torch, dev, card, first_chunks, k2_reads)

@@ -15,6 +15,7 @@ and device stack loads on first use of a name that needs it.
 * ``repro_torch.core``   -- codec, sessions, decode engine, KS machinery
 * ``repro_torch.store``  -- indexed random-access containers
 * ``repro_torch.obs``    -- metrics registry, spans, exporters, SLOs
+* ``repro_torch.serve``  -- compression services, LM decode engine
 """
 from __future__ import annotations
 
@@ -55,6 +56,11 @@ _PUBLIC = {
     "decode_range": "repro_torch.store",
     "decode_ranges": "repro_torch.store",
     "decode_channels": "repro_torch.store",
+    # serving
+    "FlushPolicy": "repro_torch.serve",
+    "CompressionService": "repro_torch.serve",
+    "StreamCoalescer": "repro_torch.serve",
+    "DecompressionService": "repro_torch.serve",
 }
 
 # public submodules, importable both as attributes and as

@@ -13,21 +13,27 @@ Backends, all byte-identical:
   ``torch``  -- tensor gather / permutation apply / re-anchor / wrap on the
                 given device, the delta cumsum as the plain column loop;
   ``cuda``   -- the same with the delta cumsum in the hand-written
-                ``kernels.seq_cumsum`` kernel.
+                ``kernels.seq_cumsum`` kernel;
+  ``auto``   -- the measured-best of the three for the plan's (mode,
+                dtype, size bucket) on the device (:func:`resolve_backend`).
 
 The device backends run on the device they are given or raise; there is no
-fallback to the host path.  Device shapes are padded to powers of two (pad
-rows are zero-payload misses the per-block math ignores); the padding is
-done on the device, so the host hands over each row once.
+fallback to the host path.  ``"auto"`` holds each device backend against
+the host path on a probe plan before it may choose it, and raises when the
+bytes differ.  Device shapes are padded to powers of two (pad rows are
+zero-payload misses the per-block math ignores); the padding is done on the
+device, so the host hands over each row once.
 
 Routing is counted on the port's registry (``repro_torch.obs``) under the
-reference's names: ``repro_decode_{host,device}_calls_total`` and
+reference's names: ``repro_decode_{host,device}_calls_total``,
+``repro_decode_autotune_{probes,hits}_total`` and
 ``repro_decode_backend_calls_total{backend}``; :func:`decode_stats` is a
-dict view of the first two.  The port has no host fallback, so it has no
-``fallbacks`` counter.
+dict view of the first four and the ``"auto"`` table.  The port has no
+host fallback, so it has no ``fallbacks`` counter.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -39,19 +45,27 @@ from ..api import BACKENDS
 from ..device import resolve_device
 from ..errors import StreamFormatError
 from .transforms import np_wrap_range, wrap_range
+from .tuning import AutotuneCacheError, MeasuredTuner, best_of, pow2_bucket
 
 __all__ = ["MODE_STD", "MODE_RESIDUAL", "MODE_DELTA", "BACKENDS",
            "DecodePlan", "PlanPart", "decode_sources", "hit_perms",
            "gather_rows", "plan_from_parsed", "pad_parts", "reconstruct",
-           "decode_stats", "reset_decode_stats"]
+           "resolve_backend", "decode_stats", "reset_decode_stats",
+           "AUTOTUNE_VERSION", "AutotuneCacheError", "load_autotune",
+           "save_autotune", "reset_autotune", "autotune_choices",
+           "autotune_cached"]
 
 MODE_STD, MODE_RESIDUAL, MODE_DELTA = 0, 1, 2
+
+logger = logging.getLogger("repro_torch.core.decode")
 
 _stat_counters = {
     key: obs.registry().counter(f"repro_decode_{key}_total", help_text)
     for key, help_text in {
         "host_calls": "reconstruct calls served on the numpy host path",
         "device_calls": "reconstruct calls served on a device backend",
+        "autotune_probes": "backend=auto measured first-use probes",
+        "autotune_hits": "backend=auto cached resolutions",
     }.items()
 }
 _backend_counters = {
@@ -63,8 +77,11 @@ _backend_counters = {
 
 
 def decode_stats() -> dict:
-    """``{"host_calls": int, "device_calls": int}`` since the last reset."""
-    return {key: int(c.value) for key, c in _stat_counters.items()}
+    """``host_calls``, ``device_calls``, ``autotune_probes`` and
+    ``autotune_hits`` since the last reset, and ``autotune_choices``, the
+    ``"auto"`` routing table."""
+    snap = {key: int(c.value) for key, c in _stat_counters.items()}
+    return {**snap, "autotune_choices": autotune_choices()}
 
 
 def reset_decode_stats() -> None:
@@ -308,21 +325,186 @@ def _run_device(plan: DecodePlan, backend: str,
     return out[:nb].cpu().numpy()
 
 
+# ------------------------------------------------------ measured autotuner
+#
+# ``backend="auto"``: the first time a (mode, dtype, size bucket) is
+# resolved on a device type, the engine holds the ``torch`` and ``cuda``
+# backends against the host path on a small probe plan (raising when the
+# bytes differ), times all three on a bucket-sized probe plan, routes the
+# combination to the fastest and remembers the choice.  Choices persist in
+# a versioned JSON cache when ``REPRO_TORCH_DECODE_AUTOTUNE`` names a path
+# (the reference package's ``REPRO_DECODE_AUTOTUNE`` is never read); a
+# stale or corrupt file is discarded and re-probed.  The table is
+# ``core.tuning.MeasuredTuner``, as for the encoder's ``matcher="auto"``.
+
+AUTOTUNE_VERSION = 1
+_BUCKET_MIN, _BUCKET_MAX = 64, 16384
+
+_TUNER = MeasuredTuner(
+    version=AUTOTUNE_VERSION, env_var="REPRO_TORCH_DECODE_AUTOTUNE",
+    validate_entry=lambda ent: ent.get("backend") in BACKENDS, log=logger,
+    name="decode")
+_exact_ok: set = set()  # (backend, mode, dtype, range, B, device type)
+
+
+def _probe_plan(mode: int, dtype, value_range, block_size: int,
+                nb: int = 16, n_rows: int = 5) -> DecodePlan:
+    """Small deterministic plan with mantissa-rich values: hits, misses,
+    shared sources and (delta) long accumulation chains all present.
+    The defaults are the exactness probe's; the autotuner reuses this with
+    ``nb`` at the size bucket it is timing."""
+    dt = np.dtype(dtype)
+    B = block_size
+    P = B if mode == MODE_STD else B - 1
+    bits = _splitmix64(np.arange(n_rows * P, dtype=np.uint64) + np.uint64(7))
+    vals = (bits.astype(np.float64) / 2.0 ** 64 - 0.5) * 8.0
+    payloads = vals.reshape(n_rows, P).astype(dt)
+    src = (np.arange(nb, dtype=np.int64) * 3) % n_rows
+    is_hit = np.ones(nb, dtype=bool)
+    is_hit[:n_rows] = False
+    bases = None
+    if mode != MODE_STD:
+        bbits = _splitmix64(np.arange(nb, dtype=np.uint64) + np.uint64(99))
+        bases = ((bbits.astype(np.float64) / 2.0 ** 64 - 0.5) * 700.0
+                 ).astype(dt)
+    return DecodePlan(mode=mode, block_size=B, dtype=dt,
+                      value_range=value_range, payloads=payloads, src=src,
+                      bases=bases, is_hit=is_hit,
+                      block_idx=np.arange(nb, dtype=np.int64), seed=3)
+
+
+def _check_exact(backend: str, mode: int, dtype, value_range,
+                 block_size: int, device: torch.device) -> None:
+    """Hold ``backend`` against the host path on the exactness probe
+    (once per combination); raise when its bytes differ."""
+    key = (backend, mode, np.dtype(dtype).str, value_range, block_size,
+           device.type)
+    if key in _exact_ok:
+        return
+    probe = _probe_plan(mode, dtype, value_range, block_size)
+    got = _run_device(probe, backend, device)
+    if got.tobytes() != _reconstruct_numpy(probe).tobytes():
+        raise RuntimeError(f"decode backend {backend!r} is not byte-exact "
+                           f"against the host path for {key}")
+    _exact_ok.add(key)
+
+
+def _size_bucket(nb: int) -> int:
+    """Pow-2 size bucket of a dispatch, clamped so the probe table stays
+    small: everything below 64 blocks shares one bucket (dispatch overhead
+    dominates), everything above 16384 another (bandwidth dominates)."""
+    return pow2_bucket(nb, _BUCKET_MIN, _BUCKET_MAX)
+
+
+def _autotune_key(mode: int, dtype, nb: int, device=None) -> str:
+    return (f"mode={mode}|dtype={np.dtype(dtype).str}"
+            f"|bucket={_size_bucket(nb)}"
+            f"|device={resolve_device(device).type}")
+
+
+def load_autotune(path: str, strict: bool = True) -> int:
+    """Load persisted ``"auto"`` choices; returns the entry count.
+    ``strict=True`` raises :class:`AutotuneCacheError` on a corrupt or
+    version-stale file; ``strict=False`` logs, discards, and leaves the
+    table cold so combinations are re-probed."""
+    return _TUNER.load(path, strict=strict)
+
+
+def save_autotune(path: str) -> None:
+    """Persist the in-memory choices (atomic replace)."""
+    _TUNER.save(path)
+
+
+def reset_autotune() -> None:
+    """Forget every choice, every exactness verdict and the lazy disk
+    load: the next ``"auto"`` resolution re-probes."""
+    _TUNER.reset()
+    _exact_ok.clear()
+
+
+def autotune_choices() -> dict:
+    """Current ``"auto"`` routing table: autotune key -> backend name."""
+    return _TUNER.choices("backend")
+
+
+def autotune_cached(mode: int, dtype, nb: int, device=None) -> bool:
+    """Whether ``"auto"`` for this (mode, dtype, size bucket) on ``device``
+    would resolve from the table (True) or run a timing probe (False).
+    The serving layer quiesces its pipeline before a cold probe: timing
+    backends while a reconstruct is in flight would poison the choice."""
+    return _TUNER.cached(_autotune_key(mode, dtype, nb, device))
+
+
+def _probe_autotune(mode: int, dtype, value_range, block_size: int,
+                    bucket: int, device: torch.device) -> dict:
+    """Time the host path against ``torch`` and ``cuda`` on a bucket-sized
+    probe plan (pow-2 shapes, the ones real traffic reuses), each device
+    backend first held exact.  A device backend must be more than 5 %
+    faster than the host path to take the route."""
+    plan = _probe_plan(mode, dtype, value_range, block_size,
+                       nb=bucket, n_rows=min(bucket, 64))
+    times = {"numpy": best_of(lambda: _reconstruct_numpy(plan))}
+    for b in BACKENDS[1:]:
+        _check_exact(b, mode, dtype, value_range, block_size, device)
+        times[b] = best_of(lambda: _run_device(plan, b, device))
+    backend = min(sorted(times), key=times.get)
+    if times[backend] > times["numpy"] * 0.95:
+        backend = "numpy"
+    return {"backend": backend,
+            "times_us": {k: round(v * 1e6, 3) for k, v in times.items()}}
+
+
+def resolve_backend(backend: str, mode: int, dtype, nb: int,
+                    value_range=None, block_size: int = 32,
+                    device=None) -> str:
+    """Concrete backend for one dispatch.
+
+    Explicit names pass through (validated); ``"auto"`` returns the
+    measured-best backend for ``(mode, dtype, size bucket)`` on ``device``
+    (default ``"cuda"``, raising without a GPU), probing, recording and
+    (when ``REPRO_TORCH_DECODE_AUTOTUNE`` is set) persisting on first use.
+    ``nb`` must be the size of the dispatch being routed (a serving
+    layer's merged group, not one request).  A probe that fails, or a
+    device backend whose probe bytes differ from the host path's, raises.
+    """
+    if backend != "auto":
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown decode backend {backend!r}; "
+                             f"expected one of {BACKENDS + ('auto',)}")
+        return backend
+    device = resolve_device(device)
+    key = _autotune_key(mode, dtype, nb, device)
+    with _TUNER.lock:
+        hit = _TUNER.cached(key)
+        ent = _TUNER.resolve(key, lambda: _probe_autotune(
+            mode, np.dtype(dtype), value_range, block_size,
+            _size_bucket(nb), device))
+        _stat_counters["autotune_hits" if hit else "autotune_probes"].inc()
+    if not hit:
+        logger.info("decode autotune: %s -> %s %s", key, ent["backend"],
+                    ent["times_us"])
+    return ent["backend"]
+
+
 def reconstruct(plan: DecodePlan, backend: str = "cuda",
                 device=None) -> np.ndarray:
     """Rebuild ``(nb, B)`` block values from a plan (paper Sec. V-A2/V-B2).
 
-    ``backend`` is ``"cuda"`` (default), ``"torch"`` or ``"numpy"`` (the
-    host reference, which ignores ``device``).  The tensor backends run on
-    ``device``, default ``"cuda"``, which raises without a GPU; ``"cuda"``
-    on a CPU device runs the kernel's plain version.  Every backend is
+    ``backend`` is ``"cuda"`` (default), ``"torch"``, ``"numpy"`` (the
+    host reference, which ignores ``device``) or ``"auto"`` (the measured
+    choice for the plan's mode, dtype and size bucket,
+    :func:`resolve_backend`).  The tensor backends run on ``device``,
+    default ``"cuda"``, which raises without a GPU; ``"cuda"`` on a CPU
+    device runs the kernel's plain version.  Every backend is
     byte-identical.
     """
-    if backend not in BACKENDS:
+    if backend != "auto" and backend not in BACKENDS:
         raise ValueError(f"unknown decode backend {backend!r}; expected one "
-                         f"of {BACKENDS}")
+                         f"of {BACKENDS + ('auto',)}")
     if plan.nb == 0:
         return np.zeros((0, plan.block_size), dtype=np.dtype(plan.dtype))
+    backend = resolve_backend(backend, plan.mode, plan.dtype, plan.nb,
+                              plan.value_range, plan.block_size, device)
     if backend == "numpy":
         out = _reconstruct_numpy(plan)
     else:

@@ -90,6 +90,10 @@ _M_COHORT = obs.registry().histogram(
     buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0,
              1024.0))
 
+# Raised for ``plan=`` (sharded encode) by sessions and the coalescer.
+PLAN_NOT_PORTED = ("encode plans (sharded sessions) are not ported yet "
+                   "(ROADMAP Queue 1 item 9)")
+
 # Forces the per-channel loop in adaptive sessions (the port's own variable:
 # the reference package's REPRO_ADAPTIVE_LOOP is not read).
 _ADAPTIVE_LOOP_ENV = "REPRO_TORCH_ADAPTIVE_LOOP"
@@ -164,13 +168,14 @@ class MixedCohort:
                 for f in self.state))
         self.capacity = int(capacity)
 
-    def decide(self, entries):
+    def decide(self, entries, *, nb_pad: Optional[int] = None):
         """One mixed-mode scan over ``entries``: a list of ``(lane, payload
         (nb_i, n_i), d_crit, err_cum, eb_on)`` tuples.  Payload widths are
         padded to the cohort's widest with +inf (as float32, on the host)
-        and block counts to the most of any entry through the valid mask.
-        Returns ``{lane: (is_hit, slot, overwrite)}`` cut back to each
-        entry's block count, after the one host sync."""
+        and block counts to ``max(nb_pad, the most of any entry)`` through
+        the valid mask (a coalescer passes its bucketed length).  Returns
+        ``{lane: (is_hit, slot, overwrite)}`` cut back to each entry's block
+        count, after the one host sync."""
         from .encoder import encode_decisions_mixed, init_state, repad_state_n
 
         t0 = time.perf_counter()
@@ -178,6 +183,8 @@ class MixedCohort:
             self.lane_n[lane] = p.shape[-1]
         n_max = int(self.lane_n.max())
         nb = max(p.shape[0] for _, p, *_ in entries)
+        if nb_pad is not None:
+            nb = max(nb, int(nb_pad))
         batch = np.full((self.capacity, nb, n_max), np.inf, dtype=np.float32)
         valid = np.zeros((self.capacity, nb), dtype=bool)
         d_crit = np.ones(self.capacity, dtype=np.float32)
@@ -267,8 +274,7 @@ class IdealemSession:
                  emit_segments: bool = True, dtype=np.float64, plan=None,
                  container: bool = False):
         if plan is not None:
-            raise ValueError("encode plans (sharded sessions) are not ported "
-                             "yet (ROADMAP Queue 1 item 9)")
+            raise ValueError(PLAN_NOT_PORTED)
         if channels is not None and channels < 1:
             raise ValueError("channels must be >= 1")
         self.codec = codec

@@ -1,1 +1,2 @@
-"""Synthetic telemetry for the paper's traffic (``synthetic``)."""
+"""Synthetic telemetry for the paper's traffic (``synthetic``) and the
+compressed ingestion path (``pipeline``)."""

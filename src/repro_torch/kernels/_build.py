@@ -10,7 +10,11 @@ Each build's compiler output (``-Xptxas=-v``: registers, shared memory,
 spills) is kept beside the library as ``<name>.log``.
 
 Nothing here runs at import time: a kernel module calls :func:`load` the
-first time its wrapper launches on a CUDA tensor.
+first time its wrapper launches on a CUDA tensor.  :func:`load` holds a
+lock across its lookup, build and ``dlopen``, so a first use from two
+threads (a pipelined service's worker and its caller) builds and loads a
+library once; :func:`count_launch` bumps a wrapper's launch counter under
+a lock of its own, so counts stay exact when two threads launch.
 """
 from __future__ import annotations
 
@@ -18,11 +22,13 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "build_all", "load", "build_log"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "build_all", "load", "build_log",
+           "count_launch"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -36,6 +42,8 @@ EXTRA_FLAGS = {"encode_step": ("-fmad=false",),
                "dict_match": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -106,12 +114,19 @@ def build_all(force: bool = False) -> Dict[str, float]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if stale."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        src = CSRC_DIR / f"{name}.cu"
-        if not src.exists():
-            raise FileNotFoundError(f"no kernel source {src}")
-        if _stale(src):
-            build_all()
-        lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
-    return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            src = CSRC_DIR / f"{name}.cu"
+            if not src.exists():
+                raise FileNotFoundError(f"no kernel source {src}")
+            if _stale(src):
+                build_all()
+            lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+        return lib
+
+
+def count_launch(module) -> None:
+    """Add one to ``module.launches`` (a kernel wrapper's counter)."""
+    with _COUNT_LOCK:
+        module.launches += 1

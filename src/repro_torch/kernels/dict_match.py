@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -123,6 +124,5 @@ def dict_match_cuda(xs, rows, dmin, dmax, rel_tol: float):
                 float(np.float32(1.0 / n)), stream)
     if rc != 0:
         raise RuntimeError(f"dict_match kernel launch failed: CUDA error {rc}")
-    global launches
-    launches += 1
+    _build.count_launch(sys.modules[__name__])
     return ks, mm

@@ -31,6 +31,7 @@ KS counts run over all n columns with the gaps of the first ``nf`` points.
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Optional
 
 import numpy as np
@@ -227,6 +228,5 @@ def encode_scan(xs, valid, state: DictState, *, d_crit: float,
                 int(bool(error_cumulative)), chan_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"encode_scan kernel launch failed: CUDA error {rc}")
-    global launches
-    launches += 1
+    _build.count_launch(sys.modules[__name__])
     return (is_hit, slot, overwrite), sout

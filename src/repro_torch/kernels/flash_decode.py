@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 
 import torch
 
@@ -169,6 +170,5 @@ def flash_decode(q, k_cache, v_cache, valid):
     if rc != 0:
         raise RuntimeError(
             f"flash_decode kernel launch failed: CUDA error {rc}")
-    global launches
-    launches += 1
+    _build.count_launch(sys.modules[__name__])
     return out

@@ -2,15 +2,18 @@
 
 The counterpart of ``repro/serve/engine.py``'s ``serve_step``,
 ``prefill_step`` and ``ServeEngine`` for the dense family.  Every decode
-step runs K4 once per attention layer.  The reference's ``FlushPolicy``
-belongs to the compression services and is ported with them (ROADMAP
-Queue 1 item 8).
+step runs K4 once per attention layer.
+
+``FlushPolicy`` is the serving layer's shared micro-batching knob: the
+compression services (``serve.compress``) accumulate per-client payloads
+and cut one padded device batch when the policy trips.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -20,7 +23,58 @@ from ..models import lm
 from ..models.common import ModelConfig
 from ..models.layers import unembed
 
-__all__ = ["serve_step", "prefill_step", "ServeEngine"]
+__all__ = ["FlushPolicy", "serve_step", "prefill_step", "ServeEngine"]
+
+
+@dataclass(frozen=True)
+class FlushPolicy:
+    """When a coalescer should stop accumulating and cut a device batch.
+
+    ``max_batch_blocks`` bounds the padded scan length; ``max_batch_streams``
+    bounds how many clients wait on one dispatch (tail latency);
+    ``max_age_s`` is the latency deadline -- a batch flushes once its
+    oldest staged payload has waited this long, however little has
+    accumulated.  Any threshold trips a flush; callers may always flush
+    earlier (shutdown).
+
+    ``pipeline_depth`` bounds how many flushed batches a pipelined
+    coalescer (``serve.pipeline``) holds in flight: 1 alternates plan and
+    reconstruct (a flush returns its own batch's answers); 2 plans batch
+    N+1 on the host while batch N reconstructs, and a flush returns the
+    previous batch's answers (``drain()`` collects the rest).
+
+    The policy is pure: coalescers measure the age with their own
+    (injectable) clock and pass it in.
+    """
+
+    max_batch_blocks: int = 4096
+    max_batch_streams: int = 256
+    max_age_s: Optional[float] = None
+    pipeline_depth: int = 1
+
+    def __post_init__(self):
+        if self.pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+
+    def with_updates(self, **changes) -> "FlushPolicy":
+        """A copy with the given knobs replaced; the policy itself stays
+        frozen and hashable."""
+        return dataclasses.replace(self, **changes)
+
+    def as_dict(self) -> dict:
+        """JSON-ready knob dump."""
+        return {"max_batch_blocks": self.max_batch_blocks,
+                "max_batch_streams": self.max_batch_streams,
+                "max_age_s": self.max_age_s,
+                "pipeline_depth": self.pipeline_depth}
+
+    def should_flush(self, n_streams: int, n_blocks: int,
+                     age_s: Optional[float] = None) -> bool:
+        if (self.max_age_s is not None and age_s is not None
+                and age_s >= self.max_age_s and (n_streams or n_blocks)):
+            return True
+        return (n_streams >= self.max_batch_streams
+                or n_blocks >= self.max_batch_blocks)
 
 
 def serve_step(params, cache: lm.DecodeCache, tokens, cfg: ModelConfig):

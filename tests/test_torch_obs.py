@@ -316,13 +316,16 @@ def test_decode_counters_by_backend():
     got = _deltas(reg, run, names)
     assert list(got.values()) == [1, 1, 2]
     stats = tdec.decode_stats()
-    assert set(stats) == {"host_calls", "device_calls"}
+    assert set(stats) == {"host_calls", "device_calls", "autotune_probes",
+                          "autotune_hits", "autotune_choices"}
     assert stats["host_calls"] - stats0["host_calls"] == 1
     assert stats["device_calls"] - stats0["device_calls"] == 3
     assert reg.get_value("repro_decode_host_calls_total") == \
         stats["host_calls"]
     tdec.reset_decode_stats()
-    assert tdec.decode_stats() == {"host_calls": 0, "device_calls": 0}
+    assert tdec.decode_stats() == {
+        "host_calls": 0, "device_calls": 0, "autotune_probes": 0,
+        "autotune_hits": 0, "autotune_choices": tdec.autotune_choices()}
     assert reg.get_value("repro_decode_backend_calls_total",
                          {"backend": "cuda"}) == 0
 
