@@ -2,8 +2,8 @@
 """Drive the PyTorch port of IDEALEM on one CUDA card: build, check, time.
 
 It drives both of the port's paths: the codec round trip with its indexed
-store and serving services (phases 3-15) and the LM serve path (phases
-16-17).
+store, serving services and network front end (phases 3-16) and the LM
+serve path (phases 17-18).
 
 Run from the root of a checkout, with no arguments:
 
@@ -141,7 +141,42 @@ Phases, each fatal on failure (no failure is caught):
               requests/s, MB/s, dispatches, padded / requested rows, chunk
               cache hits and misses, the four stage seconds and a
               ``[profile]`` line.
-16. K4     -- the flash_decode kernel against its plain version on the
+16. frontend -- the multi-tenant front end on the card: one
+              ``ServeFrontend(device="cuda", decode_backend="cuda")`` on
+              127.0.0.1, ticker and control loop on (its deadline bound
+              0.1 s), the coalesce phase's flush policy with a 10 ms
+              deadline.  8 tenants, each its own keep-alive
+              ``FrontendClient``, closed loop; per tenant and
+              Table I configuration 1 direct and 8 coalesced streams (216)
+              of 2**17 f64 samples, each its own PMU channel, seeded
+              chunks of 6,000-10,000 samples round robin, every fourth
+              request of a tenant a 4-line JSON-lines ``/v1/feed``;
+              tenant 0's direct MAG stream on ``matcher="ops"``; a ninth,
+              noisy tenant under the load generator's bytes/s quota.  Each
+              tenant then packs its 3 direct streams, attaches them over
+              ``/v1/attach`` and reads 64 ranges of each (seed 19: start
+              uniform, 1..256 blocks log-uniform), 16 in flight.  Launch
+              counts are zeroed just before and read just after.  Checks:
+              direct streams == a ``cuda`` shadow session fed the same
+              chunks (tenant 0's also == ``numpy``; the ``ops`` stream ==
+              the fused shadow); coalesced streams decode == the one-shot
+              decode of their traces, miss blocks (std) or bases and tails
+              exact; every answer == its slice of the full ``cuda`` and
+              ``numpy`` decodes bitwise; K1 == whole-block direct ``cuda``
+              feeds + coalescer flushes, K3 == the ``ops`` stream's block
+              steps, K2 == the ANG_delta ``cuda`` dispatches; the noisy
+              tenant's lines get typed ``rate_limited`` (429) documents
+              and ``/metrics`` counts them (``obs.parse_prometheus``);
+              p99 of ``POST /v1/feed`` <= 0.5 s and of ``POST
+              /v1/decode`` <= 1.0 s.  Prints feed requests/s
+              and MB/s in, decode requests/s, ratio by configuration, p50
+              and p99 by route, the launches, the control loop's final
+              policy and moves, and a ``[profile]`` line of one ingest
+              window (each tenant's first 27 feed requests, a fresh
+              server).  Then the port's load
+              generator (``python -m repro_torch.launch.loadgen --tenants
+              8``) in its own process must report ok.
+17. K4     -- the flash_decode kernel against its plain version on the
               card, within 1e-5: the JAX test's shapes, C in {1, 33, 700,
               2048}, G in {1, 4, 16}, hd in {64, 128}, f32/bf16/f16 caches,
               rows masked by ``decode_attention``'s ring formula (plain,
@@ -149,7 +184,7 @@ Phases, each fatal on failure (no failure is caught):
               mean of V); shapes split along C with a ragged last split,
               G=6 in head groups and C=32,768 at B=1.  Prints the split
               counts.
-17. serve  -- granite-3-8b at full width (weights from a seeded
+18. serve  -- granite-3-8b at full width (weights from a seeded
               ``torch.Generator``) through ``ServeEngine.generate``: 8
               numpy-seeded prompts of 256 tokens, 64 greedy tokens,
               max_seq 2048.  Checks: one K4 launch per layer and step
@@ -164,7 +199,7 @@ Phases, each fatal on failure (no failure is caught):
               (device operations a step; K4's and its combine kernel's
               device ms), and the host's milliseconds to issue those steps
               unprofiled beside their wall time.
-18. timing -- each kernel at a main-path shape against its plain version
+19. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
@@ -186,6 +221,7 @@ Prints the card line (``nvidia-smi --query-gpu=name,power.limit``) and, last,
 """
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import json
 import subprocess
@@ -270,6 +306,26 @@ COALESCE_PROFILE_ROUNDS = 6
 # (FlushPolicy(max_batch_streams=SERVICE_STREAMS)); the profiler traces
 # the first SERVICE_PROFILED of them.
 SERVICE_STREAMS, SERVICE_PROFILED = 256, 512
+# The frontend phase: a fleet of tenants behind one ServeFrontend on the
+# card, each with a direct and FRONTEND_COALESCED coalesced streams per
+# Table I configuration of FRONTEND_SAMPLES (chunks of COALESCE_CHUNK),
+# every FRONTEND_LINES_EVERY-th request of a tenant a FRONTEND_LINES-line
+# JSON-lines /v1/feed; then FRONTEND_DECODES range reads per container
+# (seed 19: start uniform, 1..FRONTEND_DECODE_BLOCKS blocks log-uniform),
+# FRONTEND_INFLIGHT in flight per tenant.  The noisy tenant is the load
+# generator's; the SLOs are its defaults (p99 seconds by route).
+FRONTEND_TENANTS, FRONTEND_COALESCED, FRONTEND_SAMPLES = 8, 8, 2 ** 17
+FRONTEND_LINES_EVERY, FRONTEND_LINES = 4, 4
+FRONTEND_DECODES, FRONTEND_INFLIGHT, FRONTEND_DECODE_BLOCKS = 64, 16, 256
+FRONTEND_PROFILE_ROUNDS = 1
+FRONTEND_SLOS = {"POST /v1/feed": 0.5, "POST /v1/decode": 1.0}
+# The control loop may stretch the flush deadline (max_age_s) up to this
+# bound.  A decode request waits for its batch's deadline, so the bound is
+# kept at a tenth of the decode SLO: at the loop's default 0.5 s the
+# deadline alone is half the SLO, and stalls of the shared event loop
+# (other tenants' handlers and flushes) took the decode p99 to 0.96 s
+# on an H100.
+FRONTEND_MAX_AGE_S = 0.1
 # The serve phase: granite-3-8b at full width, a few requests of a
 # realistic prompt length at the engine's default max_seq.
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "granite-3-8b", 8, 256, 64
@@ -1098,10 +1154,18 @@ def store_requests(nb):
     (clipped to the channel), start uniform."""
     rng = np.random.default_rng(17)
     ch = rng.integers(0, CHANNELS, STORE_REQUESTS)
-    n = np.exp(rng.uniform(0.0, np.log(STORE_MAX_BLOCKS), STORE_REQUESTS))
+    return [(int(c), a, b) for c, (a, b) in zip(
+        ch, block_ranges(rng, nb, STORE_REQUESTS, STORE_MAX_BLOCKS))]
+
+
+def block_ranges(rng, nb, count, max_blocks):
+    """``count`` ``(start, stop)`` block ranges over ``nb`` blocks from
+    ``rng``: length log-uniform over 1..``max_blocks`` (clipped to ``nb``),
+    start uniform."""
+    n = np.exp(rng.uniform(0.0, np.log(max_blocks), count))
     n = np.clip(np.rint(n).astype(np.int64), 1, nb)
-    start = (rng.random(STORE_REQUESTS) * (nb - n + 1)).astype(np.int64)
-    return [(int(c), int(a), int(a + m)) for c, a, m in zip(ch, start, n)]
+    start = (rng.random(count) * (nb - n + 1)).astype(np.int64)
+    return [(int(a), int(a + m)) for a, m in zip(start, n)]
 
 
 @contextlib.contextmanager
@@ -1607,6 +1671,8 @@ def host_seconds(**targets):
     block runs."""
     acc = dict.fromkeys(targets, 0.0)
     real = {k: getattr(cls, m) for k, (cls, m) in targets.items()}
+    # the attributes as the classes hold them (a classmethod stays one)
+    held = {k: vars(cls)[m] for k, (cls, m) in targets.items()}
 
     def timed(key):
         fn = real[key]
@@ -1625,7 +1691,7 @@ def host_seconds(**targets):
         yield acc
     finally:
         for k, (cls, m) in targets.items():
-            setattr(cls, m, real[k])
+            setattr(cls, m, held[k])
 
 
 def histogram_sum(name, labels=None):
@@ -1948,13 +2014,13 @@ def serve_ranges(svc, reqs, store_of=lambda k: "s"):
 
 @contextlib.contextmanager
 def reconstruct_units():
-    """Records ``(backend, plan blocks)`` of every reconstruct dispatch
-    made inside the block (from any thread)."""
+    """Records ``(backend, plan blocks, plan mode)`` of every reconstruct
+    dispatch made inside the block (from any thread)."""
     from repro_torch.core import decode as decode_mod
     seen, real = [], decode_mod.reconstruct
 
     def spy(plan, backend="cuda", device=None):
-        seen.append((backend, plan.nb))
+        seen.append((backend, plan.nb, plan.mode))
         return real(plan, backend=backend, device=device)
 
     decode_mod.reconstruct = spy
@@ -1999,7 +2065,7 @@ def phase_service(torch, dev, card, archives):
                                      lambda k: f"s{k % stores}")
         launches = k2.launches
         delta = store.header_of(0).mode == 2
-        cuda_units = sum(b == "cuda" for b, _ in units)
+        cuda_units = sum(b == "cuda" for b, _, _ in units)
         explicit = kw.get("backend", "cuda") == "cuda"
         # "auto" launches K2 in its probes too: its count is not checked
         check(not explicit or launches == (cuda_units if delta else 0),
@@ -2016,12 +2082,13 @@ def phase_service(torch, dev, card, archives):
                "MBps": blocks * B * 8 / wall / 1e6, "wall_s": wall,
                "flushes": svc.stats["flushes"],
                "dispatches": svc.stats["dispatches"],
-               "units_by_backend": {b: sum(u == b for u, _ in units)
-                                    for b in sorted({u for u, _ in units})},
+               "units_by_backend": {b: sum(u[0] == b for u in units)
+                                    for b in sorted({u[0] for u in units})},
                "k2_launches": launches,
-               "plan_rows_per_requested": sum(n for _, n in units) / blocks,
+               "plan_rows_per_requested":
+                   sum(n for _, n, _ in units) / blocks,
                "padded_rows_per_requested":
-                   sum(_pow2(n) for _, n in units) / blocks,
+                   sum(_pow2(n) for _, n, _ in units) / blocks,
                "cache_hits": svc.stats["cache_hits"],
                "cache_misses": svc.stats["cache_misses"],
                "inflight_peak": svc.stats["inflight_peak"],
@@ -2078,6 +2145,440 @@ def phase_service(torch, dev, card, archives):
         f"units; telemetry {reg.get_value('repro_serve_requests_total')} "
         f"requests")
     return total
+
+
+def frontend_fleet():
+    """Every tenant's streams, ``{tenant: [(stream id, config name,
+    CodecConfig, coalesce, trace row)]}``: per Table I configuration one
+    direct stream (row ``t * per``) and FRONTEND_COALESCED coalesced ones
+    (the rows after it).  Tenant 0's direct MAG stream opens with
+    ``matcher="ops"``."""
+    from repro_torch import api
+    per = 1 + FRONTEND_COALESCED
+    fleet = {}
+    for t in range(FRONTEND_TENANTS):
+        fleet[t] = []
+        for cfg_name, cfg in CONFIGS.items():
+            ops = t == 0 and cfg_name == "MAG"
+            direct = api.CodecConfig(matcher="ops" if ops else None, **cfg)
+            fleet[t].append((f"{cfg_name}-d", cfg_name, direct, False,
+                             t * per))
+            fleet[t] += [(f"{cfg_name}-c{k}", cfg_name, api.CodecConfig(**cfg),
+                          True, t * per + k) for k in range(1, per)]
+    return fleet
+
+
+async def frontend_ingest(host, port, t, streams, traffic, max_requests=None):
+    """Tenant ``t``'s closed-loop ingest over one keep-alive connection:
+    opens its streams, sends chunks of a seeded length in COALESCE_CHUNK
+    round robin over them (every FRONTEND_LINES_EVERY-th request a
+    FRONTEND_LINES-line JSON-lines /v1/feed), stops after
+    ``max_requests`` requests or when every trace is fed, and closes every
+    stream.  Returns ``{"chunks", "segs"}`` by stream id, the feed
+    requests and lines sent, and the direct feeds as ``(stream id, samples
+    before, samples)``."""
+    from collections import deque
+
+    from repro_torch import api
+    from repro_torch.serve import FrontendClient
+    rng = np.random.default_rng(19_000 + t)
+    rows = {sid: traffic[cfg_name][row] for sid, cfg_name, _, _, row
+            in streams}
+    chunks = {sid: [] for sid in rows}
+    segs = {sid: [] for sid in rows}
+    fed = dict.fromkeys(rows, 0)
+    direct = {sid for sid, _, _, coalesce, _ in streams if not coalesce}
+    direct_feeds, requests, lines = [], 0, 0
+    async with FrontendClient(host, port, f"tenant-{t}") as c:
+        for sid, _, cfg, coalesce, _ in streams:
+            await c.open(sid, cfg, coalesce=coalesce)
+        queue = deque(rows)
+        while queue and (max_requests is None or requests < max_requests):
+            want = (FRONTEND_LINES if requests % FRONTEND_LINES_EVERY
+                    == FRONTEND_LINES_EVERY - 1 else 1)
+            batch = []
+            while queue and len(batch) < want:
+                sid = queue.popleft()
+                x = rows[sid]
+                n = min(int(rng.integers(*COALESCE_CHUNK, endpoint=True)),
+                        len(x) - fed[sid])
+                batch.append((sid, x[fed[sid]:fed[sid] + n]))
+                if sid in direct:
+                    direct_feeds.append((sid, fed[sid], n))
+                fed[sid] += n
+                chunks[sid].append(batch[-1][1])
+                if fed[sid] < len(x):
+                    queue.append(sid)
+            if len(batch) == 1:
+                res = [await c.feed(*batch[0])]
+            else:
+                docs = await c.post_lines("/v1/feed", [
+                    api.CompressRequest(sid, ch).to_json()
+                    for sid, ch in batch])
+                check(len(docs) == len(batch) and not any(
+                    "error" in d for d in docs),
+                    f"frontend tenant {t}: JSON-lines feed answered "
+                    f"{[d.get('error') for d in docs]}")
+                res = [api.FeedResult.from_json(d) for d in docs]
+            for (sid, _), r in zip(batch, res):
+                check(r.stream_id == sid, f"frontend tenant {t}: answer for "
+                      f"{r.stream_id} to a feed of {sid}")
+                segs[sid].append(r.segment)
+            requests += 1
+            lines += len(batch)
+        for sid in rows:
+            segs[sid].append((await c.close_stream(sid)).segment)
+    return {"chunks": chunks, "segs": segs, "requests": requests,
+            "lines": lines, "direct_feeds": direct_feeds}
+
+
+async def frontend_reads(host, port, t, containers, reqs):
+    """Tenant ``t`` attaches its containers (``{store id: bytes}``) and
+    issues ``reqs`` (``[(request id, store id, start, stop)]``) over
+    FRONTEND_INFLIGHT keep-alive connections, each closed loop, so up to
+    FRONTEND_INFLIGHT wait in the tenant's decode mux at once.  Returns
+    the answers by request id."""
+    from repro_torch.serve import FrontendClient
+    tenant = f"tenant-{t}"
+    async with FrontendClient(host, port, tenant) as c:
+        for store_id, blob in containers.items():
+            await c.attach(store_id, blob)
+    todo, answers = list(reversed(reqs)), {}
+
+    async def worker():
+        async with FrontendClient(host, port, tenant) as c:
+            while todo:
+                rid, store_id, i, j = todo.pop()
+                rr = await c.decode(store_id, i, j, request_id=rid)
+                check(rr.request_id == rid, f"frontend tenant {t}: answer "
+                      f"{rr.request_id} to request {rid}")
+                answers[rid] = rr.values
+
+    await asyncio.gather(*(worker() for _ in range(FRONTEND_INFLIGHT)))
+    return answers
+
+
+def frontend_server(dev):
+    """The phase's server (not started): the card, ``cuda`` decodes, the
+    coalesce phase's flush policy with a 10 ms deadline, a control loop
+    whose deadline stays within FRONTEND_MAX_AGE_S, the load generator's
+    quota on the noisy tenant, and a staged-block budget per tenant of one
+    full batch."""
+    from repro_torch.serve import (ControlConfig, ControlLoop, FlushPolicy,
+                                   ServeFrontend, TenantQuota)
+    policy = FlushPolicy(max_batch_blocks=COALESCE_MAX_BLOCKS,
+                         max_batch_streams=COALESCE_STREAMS, max_age_s=0.01)
+    return ServeFrontend(
+        policy=policy,
+        control=ControlLoop(policy=policy, config=ControlConfig(
+            max_age_s=FRONTEND_MAX_AGE_S)),
+        default_quota=TenantQuota(max_staged_blocks=COALESCE_MAX_BLOCKS),
+        quotas={"noisy": TenantQuota(max_bytes_per_s=64_000,
+                                     burst_bytes=16_384)},
+        device=dev, decode_backend="cuda")
+
+
+def phase_frontend(torch, dev, card):
+    """[frontend]: FRONTEND_TENANTS tenants and the noisy one over real
+    sockets to one ``ServeFrontend`` on the card (ticker and control loop
+    on): per tenant and Table I configuration a direct stream and
+    FRONTEND_COALESCED coalesced ones of FRONTEND_SAMPLES, then
+    FRONTEND_DECODES range reads of each of its three direct streams,
+    packed and attached.  Launch counts are zeroed just before the serving
+    run and read just after.  Checks: direct streams == a ``cuda`` shadow
+    session fed the same chunks (tenant 0's also == ``numpy``; the ``ops``
+    stream == a fused one); coalesced streams decode == the one-shot
+    decode of their traces, miss blocks (std) or bases exact; every answer
+    == its slice of the full ``cuda`` and ``numpy`` decodes bitwise; K1 ==
+    whole-block direct ``cuda`` feeds + coalescer flushes, K3 == the
+    ``ops`` stream's block steps, K2 == ANG_delta ``cuda`` dispatches; the
+    noisy tenant sees a typed 429 and the scrape counts it; both p99 SLOs
+    hold; the port's load generator reports ok.  Returns the launches by
+    kernel."""
+    import os
+    import tempfile
+
+    from repro_torch import api, obs
+    from repro_torch.core import IdealemCodec
+    from repro_torch.core.session import IdealemSession
+    from repro_torch.core.stream import _walk_all, decode_stream
+    from repro_torch.kernels import dict_match as k3
+    from repro_torch.kernels import encode_step as k1
+    from repro_torch.kernels import seq_cumsum as k2
+    from repro_torch.launch.loadgen import run_noisy_tenant
+    from repro_torch.serve import FrontendClient, StreamCoalescer
+    from repro_torch.serve.tenancy import Tenant
+    from repro_torch.store import pack
+    reg = obs.registry()
+    names = list(CONFIGS)
+    per = 1 + FRONTEND_COALESCED
+    n_rows = FRONTEND_TENANTS * per
+    traffic = {c: make_traffic(c, range(i * n_rows, (i + 1) * n_rows),
+                               FRONTEND_SAMPLES)
+               for i, c in enumerate(names)}
+    fleet = frontend_fleet()
+    rng = np.random.default_rng(19)
+    reqs = {t: [(f"{c}:{k}", c, i, j) for c in names
+                for k, (i, j) in enumerate(block_ranges(
+                    rng, FRONTEND_SAMPLES // CONFIGS[c]["block_size"],
+                    FRONTEND_DECODES, FRONTEND_DECODE_BLOCKS))]
+            for t in fleet}
+    # the read service's stage histograms start empty, as in a fresh
+    # server process: the control loop steers on this phase's traffic
+    for fam in reg.families():
+        if fam.name == "repro_serve_stage_seconds":
+            for child in fam.children.values():
+                child.reset()
+
+    async def tenant_run(fe, t):
+        t0 = time.perf_counter()
+        ing = await frontend_ingest(fe.host, fe.port, t, fleet[t], traffic)
+        t1 = time.perf_counter()
+        direct = {c: b"".join(ing["segs"][f"{c}-d"]) for c in names}
+        answers = await frontend_reads(
+            fe.host, fe.port, t, {c: pack(b) for c, b in direct.items()},
+            reqs[t])
+        return ing, direct, answers, (t0, t1, time.perf_counter())
+
+    async def serve():
+        fe = await frontend_server(dev).start()
+        noisy = {"tenants": []}
+        try:
+            out = await asyncio.gather(
+                *(tenant_run(fe, t) for t in fleet),
+                run_noisy_tenant(fe.host, fe.port, noisy))
+            async with FrontendClient(fe.host, fe.port, "probe") as c:
+                scrape, control = await c.metrics(), await c.control()
+            depths = {t.id: t._decomp._pipe.depth
+                      for t in fe.tenants.tenants.values()
+                      if t._decomp is not None}
+        finally:
+            await fe.close()
+        return out[:-1], noisy["tenants"][0], scrape, control, depths
+
+    f0 = reg.get_value("repro_encode_flushes_total")
+    adj0 = {k: reg.get_value("repro_control_adjustments_total", {"knob": k})
+            for k in ("max_batch_blocks", "max_age_s", "pipeline_depth")}
+    rep0 = reg.get_value("repro_control_reprobes_total")
+    torch.cuda.synchronize()
+    k1.launches = k2.launches = k3.launches = 0
+    with reconstruct_units() as units:
+        t_start = time.perf_counter()
+        runs, noisy, scrape, control, depths = asyncio.run(serve())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+    launches = {"encode_step": k1.launches, "seq_cumsum": k2.launches,
+                "dict_match": k3.launches}
+    flushes = int(reg.get_value("repro_encode_flushes_total") - f0)
+    adjust = {k: int(reg.get_value("repro_control_adjustments_total",
+                                   {"knob": k}) - v)
+              for k, v in adj0.items()}
+    reprobes = int(reg.get_value("repro_control_reprobes_total") - rep0)
+
+    # ---------------------------------------------------- launch counts
+    whole = 0
+    for t, (ing, _, _, _) in enumerate(runs):
+        for sid, before, n in ing["direct_feeds"]:
+            if t == 0 and sid == "MAG-d":
+                continue  # the ops stream launches K3, not K1
+            B = CONFIGS[sid.split("-")[0]]["block_size"]
+            whole += (before + n) // B > before // B
+    ops_steps = FRONTEND_SAMPLES // CONFIGS["MAG"]["block_size"]
+    delta_units = sum(b == "cuda" and mode == 2 for b, _, mode in units)
+    check(launches["encode_step"] == whole + flushes,
+          f"frontend: K1 launches {launches['encode_step']} == whole-block "
+          f"direct cuda feeds {whole} + coalescer flushes {flushes}")
+    check(launches["dict_match"] == ops_steps,
+          f"frontend: K3 launches {launches['dict_match']} == the ops "
+          f"stream's block steps {ops_steps}")
+    check(launches["seq_cumsum"] == delta_units and delta_units > 0,
+          f"frontend: K2 launches {launches['seq_cumsum']} == ANG_delta "
+          f"cuda dispatches {delta_units}")
+    check(all(b == "cuda" for b, _, _ in units),
+          f"frontend: every decode dispatch on cuda "
+          f"({sorted({b for b, _, _ in units})})")
+
+    # ------------------------------------------------------ admission
+    parsed = obs.parse_prometheus(scrape)
+    rejections = sum(v for (name, _), v in parsed.items()
+                     if name == "repro_frontend_rejections_total")
+    check(noisy["rejections_seen"] >= 1 and rejections > 0,
+          f"frontend: the noisy tenant saw {noisy['rejections_seen']} typed "
+          f"429s, /metrics counts {rejections}")
+    slos = obs.evaluate_slos([
+        obs.SloSpec("repro_frontend_request_seconds", 0.99, limit,
+                    {"route": route})
+        for route, limit in FRONTEND_SLOS.items()], parsed=parsed)
+    for res in slos:
+        check(res.ok and res.value is not None, f"frontend: {res.describe()}")
+    routes = sorted({dict(items).get("route") for (name, items), _
+                     in parsed.items()
+                     if name == "repro_frontend_request_seconds_count"})
+    latency = {r: {f"p{int(q * 100)}": obs.quantile_from_parsed(
+        parsed, "repro_frontend_request_seconds", q, {"route": r})
+        for q in (0.5, 0.99)} for r in routes}
+
+    # ------------------------------------------------- bytes and answers
+    for t, (ing, direct, answers, _) in enumerate(runs):
+        for sid, cfg_name, cfg, coalesce, row in fleet[t]:
+            if coalesce:
+                continue
+            kw = dict(CONFIGS[cfg_name])
+            arms = ("cuda", "numpy") if t == 0 else ("cuda",)
+            for backend in arms:
+                sess = IdealemCodec(backend=backend, device=dev,
+                                    **kw).session()
+                want = b"".join([sess.feed(ch) for ch in ing["chunks"][sid]]
+                                + [sess.finish()])
+                check(direct[cfg_name] == want,
+                      f"frontend tenant {t} {sid}"
+                      f"{' (ops)' if cfg.matcher else ''}: wire bytes == a "
+                      f"{backend} shadow session fed the same chunks")
+        for cfg_name in names:
+            blob = direct[cfg_name]
+            y = decode_stream(blob, device=dev)
+            y_np = decode_stream(blob, backend="numpy")
+            check(y.tobytes() == y_np.tobytes(),
+                  f"frontend tenant {t} {cfg_name}: cuda decode == numpy")
+            B = CONFIGS[cfg_name]["block_size"]
+            for rid, store_id, i, j in reqs[t]:
+                if store_id == cfg_name:
+                    check(answers[rid].tobytes()
+                          == y[i * B:j * B].tobytes(),
+                          f"frontend tenant {t} {rid}: answer == the full "
+                          f"cuda and numpy decodes' slice")
+    # coalesced streams: == the one-shot decode of each trace (one
+    # single-feed batched session a configuration: the same decisions)
+    ratio = {}
+    for cfg_name in names:
+        kw = CONFIGS[cfg_name]
+        B = kw["block_size"]
+        codec = IdealemCodec(device=dev, **kw)
+        x = traffic[cfg_name]
+        sess = codec.session(channels=n_rows, emit_segments=False)
+        sess.feed(x)
+        oneshot = sess.finish()
+        wire_bytes = 0
+        for t, (ing, _, _, _) in enumerate(runs):
+            for sid, c, _, coalesce, row in fleet[t]:
+                if c != cfg_name:
+                    continue
+                blob = b"".join(ing["segs"][sid])
+                wire_bytes += len(blob)
+                if not coalesce:
+                    continue
+                y = decode_stream(blob, device=dev)
+                want = decode_stream(oneshot[row], device=dev)
+                check(y.tobytes() == want.tobytes(),
+                      f"frontend tenant {t} {sid}: decode == the one-shot "
+                      "decode of its trace")
+                nb = FRONTEND_SAMPLES // B
+                yb = y[:nb * B].reshape(nb, B)
+                xb = x[row, :nb * B].reshape(nb, B)
+                if kw["mode"] == "std":
+                    miss = ~_walk_all(memoryview(blob))[1]
+                    exact = np.array_equal(yb[miss], xb[miss])
+                else:
+                    exact = np.array_equal(yb[:, 0], xb[:, 0])
+                check(exact and np.array_equal(y[nb * B:], x[row, nb * B:]),
+                      f"frontend tenant {t} {sid}: miss blocks (std) or "
+                      "bases and tail exact")
+        ratio[cfg_name] = x.nbytes / wire_bytes
+
+    # ------------------------------------------------------------ report
+    feeds = sum(ing["requests"] for ing, _, _, _ in runs)
+    lines = sum(ing["lines"] for ing, _, _, _ in runs)
+    t0 = min(tm[0] for *_, tm in runs)
+    ingest_s = max(tm[1] for *_, tm in runs) - t0
+    read_s = max(tm[2] for *_, tm in runs) - min(tm[1] for *_, tm in runs)
+    decodes = sum(len(r) for r in reqs.values())
+    nbytes = sum(x.nbytes for x in traffic.values())
+    res = {"tenants": len(runs), "streams": sum(map(len, fleet.values())),
+           "samples_per_stream": FRONTEND_SAMPLES,
+           "feed_requests": feeds, "feed_lines": lines,
+           "feed_requests_per_s": feeds / ingest_s,
+           "feed_MBps_in": nbytes / ingest_s / 1e6, "ingest_s": ingest_s,
+           "decode_requests": decodes, "decode_requests_per_s":
+               decodes / read_s, "decode_s": read_s, "wall_s": wall,
+           "ratio": ratio, "latency_s_by_route": latency,
+           "launches": launches, "coalescer_flushes": flushes,
+           "whole_block_direct_feeds": whole,
+           "ang_delta_cuda_dispatches": delta_units,
+           "decode_dispatches": len(units),
+           "noisy": noisy, "rejections_total": rejections,
+           "slos": {r.spec.describe(): r.value for r in slos},
+           "control": control, "control_adjustments": adjust,
+           "control_reprobes": reprobes,
+           "decode_pipeline_depth_by_tenant": depths}
+    say(f"[frontend] {json.dumps(res)} [{card}]")
+    say(f"[frontend] checks passed: {res['streams']} streams; direct == "
+        "cuda shadows (tenant 0 also numpy; ops == fused); coalesced == "
+        f"one-shot decodes; {decodes} answers == full cuda and numpy "
+        f"decodes; K1 {launches['encode_step']} == {whole} + {flushes}, K3 "
+        f"{launches['dict_match']} == {ops_steps} steps, K2 "
+        f"{launches['seq_cumsum']} == {delta_units} dispatches; noisy 429s "
+        f"seen and counted; p99 SLOs held")
+
+    # one ingest window again, on a fresh server, under the profiler
+    async def ingest_window():
+        fe = await frontend_server(dev).start()
+        try:
+            await asyncio.gather(*(frontend_ingest(
+                fe.host, fe.port, t, fleet[t], traffic,
+                max_requests=FRONTEND_PROFILE_ROUNDS * len(fleet[t]))
+                for t in fleet))
+        finally:
+            await fe.close()
+
+    route = {"route": "POST /v1/feed"}
+    with host_seconds(feed=(Tenant, "feed"),
+                      direct_feed=(IdealemSession, "feed"),
+                      coalescer_submit=(StreamCoalescer, "submit"),
+                      parse=(api.CompressRequest, "from_json"),
+                      answer=(api.FeedResult, "to_json"),
+                      prepare=(IdealemSession, "prepare"),
+                      commit=(IdealemSession, "commit")) as host:
+        s0 = histogram_sum("repro_frontend_request_seconds", route)
+        f0 = histogram_sum("repro_encode_flush_seconds")
+        out = device_profile(torch, lambda: asyncio.run(ingest_window()),
+                             names=("encode_scan", "dict_match", "HtoD",
+                                    "DtoH", "Sort"))
+        handlers_s = histogram_sum("repro_frontend_request_seconds",
+                                   route) - s0
+        flush_s = histogram_sum("repro_encode_flush_seconds") - f0
+    runs_ = out["runs"]
+    out.update({f"host_{k}_s": v / runs_ for k, v in host.items()},
+               host_feed_handlers_s=handlers_s / runs_,
+               host_coalescer_flushes_s=flush_s / runs_,
+               requests_per_tenant=FRONTEND_PROFILE_ROUNDS
+               * len(fleet[0]))
+    say(f"[profile] frontend ingest, the first {out['requests_per_tenant']}"
+        f" feed requests of {FRONTEND_TENANTS} tenants on a fresh server: "
+        f"{json.dumps(out)} [{card}]")
+
+    # the port's load generator at its acceptance profile, its own process
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "loadgen.json")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH"))
+            if p))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.loadgen",
+             "--tenants", str(FRONTEND_TENANTS), "--device", dev.type,
+             "--json", path], env=env, capture_output=True, text=True,
+            timeout=600)
+        check(proc.returncode == 0 and os.path.exists(path),
+              f"frontend: loadgen exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        with open(path) as fh:
+            lg = json.load(fh)
+    check(lg["ok"], f"frontend: loadgen report {lg['problems']}")
+    say(f"[frontend] loadgen --tenants {FRONTEND_TENANTS} --device "
+        f"{dev.type}: ok, {lg['byte_diffs']} byte diffs, "
+        f"{lg['decode_diffs']} decode diffs, {lg['rejections_seen']} typed "
+        f"rejections, wall {lg['wall_s']} s, slos {json.dumps(lg['slos'])} "
+        f"[{card}]")
+    return launches
 
 
 def time_k3(torch, dev, C, D, n, sorted_rows=False):
@@ -2542,7 +3043,7 @@ def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
 
 
 def phase_timing(torch, dev, card, first_chunks, k2_reads):
-    """Each kernel at its main-path shapes (15.): returns the timings that
+    """Each kernel at its main-path shapes (19.): returns the timings that
     the kernels JSON line reports, by kernel.  ``k2_reads`` holds K2's
     operands on the store's ANG_delta reads."""
     from repro_torch.core.decode import _pow2
@@ -2641,6 +3142,8 @@ def main() -> int:
     launches["encode_step"] += phase_coalesce_adaptive(torch, dev, card)
     launches["seq_cumsum"] += phase_service(torch, dev, card, archives)
     del archives
+    for name, n in phase_frontend(torch, dev, card).items():
+        launches[name] += n
     phase_k4(torch, dev)
     launches["flash_decode"] = phase_serve(torch, dev, card)
     timed = phase_timing(torch, dev, card, first_chunks, k2_reads)

@@ -596,7 +596,8 @@ class DecompressionService:
     while the caller plans and gathers batch N+1, a flush returns the
     answers of the batch that just completed, and ``drain()`` (or
     ``close()``) collects the rest.  A store that fails in any stage fails
-    alone: its requests go to ``last_errors``.  ``executor`` (any object
+    alone: its requests go to ``last_errors``, as do a group's requests
+    when ``"auto"`` finds no exact backend for it.  ``executor`` (any object
     with ``submit(fn, *args) -> future`` and ``shutdown()``) and ``trace``
     (a ``(stage, flush_seq)`` callable) are injectable for tests.
 
@@ -926,8 +927,14 @@ class DecompressionService:
                 for (sq, bu), oc, ex in self._pipe.drain():
                     self._early_out.update(
                         self._stage_emit(sq, bu, oc, ex))
-            eff = decode_mod.resolve_backend(self.backend, mode, dt_str,
-                                             total, vr, B, self.device)
+            try:
+                eff = decode_mod.resolve_backend(self.backend, mode, dt_str,
+                                                 total, vr, B, self.device)
+            except Exception as e:  # "auto" found no exact backend
+                for rid, _, _ in items:
+                    self.last_errors[rid] = e
+                self._acct("failed_requests", len(items))
+                continue
             if eff == "numpy":
                 # host path: split by pow-2 length bucket (padding control)
                 for it in items:
