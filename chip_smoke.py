@@ -2,8 +2,8 @@
 """Drive the PyTorch port of IDEALEM on one CUDA card: build, check, time.
 
 It drives both of the port's paths: the codec round trip with its indexed
-store, serving services and network front end (phases 3-16) and the LM
-serve path (phases 17-18).
+store, serving services, network front end and scale-out encode (phases
+3-17) and the LM serve path (phases 18-19).
 
 Run from the root of a checkout, with no arguments:
 
@@ -57,10 +57,11 @@ Phases, each fatal on failure (no failure is caught):
               == the numpy oracle; chunked == one-shot decode.  Then the
               same encode and decode again under ``torch.profiler``: the
               card's busy share and device time by kernel name.
-8. ops     -- MAG with ``matcher="ops"`` (K3 once per block step), all
-              16 chunks (2**20 samples a channel): the streams must equal
-              the fused streams byte for byte, with one K3 launch per block
-              stepped and no K1 launch.
+8. ops     -- MAG with ``matcher="ops"`` (K3 once per block step), the
+              first 8 of 16 chunks (2**19 samples a channel; all 16 before
+              phase 15 took the room): the streams must equal the fused
+              streams of the same chunks byte for byte, with one K3 launch
+              per block stepped and no K1 launch.
 9. bound   -- the error-bounded mode on ``backend="cuda"``, all 16 chunks
               (2**20 samples a channel): MAG with
               ``error_bound``, ANG_delta with ``error_bound_rel``.  Every
@@ -129,7 +130,23 @@ Phases, each fatal on failure (no failure is caught):
               same chunking, a flush a round: one K1 launch with its chan
               operand a flush; every stream == a per-stream adaptive
               session fed the same runs.
-15. service -- the three containers of phase 10 attached to a
+15. shard  -- the scale-out encode through encode plans of 4 shards on the
+              visible cards round robin (``cuda:0`` four times on one
+              card): the main phase's sessions with a channel plan (16
+              channels a shard), streams == phase 7's and K1 == feeds x
+              shards; MAG and ANG_delta at 2**16 samples with the
+              dictionary split over 2 and 4 shards (D=255 padded to 256,
+              a pad row on the last shard), and MAG ``error_bound=3.0`` over
+              2: streams == the unplanned fused session's, K3 == block
+              steps x shards, no K1, K3 == its plain version on every
+              shard's final rows; phase 12's adaptive session through a
+              channel plan: streams == phase 12's, one K1 chan launch a
+              shard a feed; a planned ``StreamCoalescer`` of 64 slots a
+              Table I configuration (64 streams of 2**18): streams == the
+              unplanned coalescer's, K1 == flushes x shards.  A
+              ``[profile]`` line of 64 dictionary-sharded block steps
+              (K3's and the cross-shard minimum's device ms).
+16. service -- the three containers of phase 10 attached to a
               ``DecompressionService``, its 4,096 range requests submitted
               one by one with ``FlushPolicy(max_batch_streams=256)`` at
               pipeline depth 1 and 2 on ``backend="cuda"``, at depth 2 on
@@ -141,7 +158,7 @@ Phases, each fatal on failure (no failure is caught):
               requests/s, MB/s, dispatches, padded / requested rows, chunk
               cache hits and misses, the four stage seconds and a
               ``[profile]`` line.
-16. frontend -- the multi-tenant front end on the card: one
+17. frontend -- the multi-tenant front end on the card: one
               ``ServeFrontend(device="cuda", decode_backend="cuda")`` on
               127.0.0.1, ticker and control loop on (its deadline bound
               0.1 s), the coalesce phase's flush policy with a 10 ms
@@ -176,7 +193,7 @@ Phases, each fatal on failure (no failure is caught):
               server).  Then the port's load
               generator (``python -m repro_torch.launch.loadgen --tenants
               8``) in its own process must report ok.
-17. K4     -- the flash_decode kernel against its plain version on the
+18. K4     -- the flash_decode kernel against its plain version on the
               card, within 1e-5: the JAX test's shapes, C in {1, 33, 700,
               2048}, G in {1, 4, 16}, hd in {64, 128}, f32/bf16/f16 caches,
               rows masked by ``decode_attention``'s ring formula (plain,
@@ -184,7 +201,7 @@ Phases, each fatal on failure (no failure is caught):
               mean of V); shapes split along C with a ragged last split,
               G=6 in head groups and C=32,768 at B=1.  Prints the split
               counts.
-18. serve  -- granite-3-8b at full width (weights from a seeded
+19. serve  -- granite-3-8b at full width (weights from a seeded
               ``torch.Generator``) through ``ServeEngine.generate``: 8
               numpy-seeded prompts of 256 tokens, 64 greedy tokens,
               max_seq 2048.  Checks: one K4 launch per layer and step
@@ -199,7 +216,7 @@ Phases, each fatal on failure (no failure is caught):
               (device operations a step; K4's and its combine kernel's
               device ms), and the host's milliseconds to issue those steps
               unprofiled beside their wall time.
-19. timing -- each kernel at a main-path shape against its plain version
+20. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
@@ -237,6 +254,9 @@ CHANNELS, SAMPLES, CHUNKS = 64, 2 ** 20, 16
 # The fused main path (phase 7) runs the first quarter of the feeds, to
 # keep the run short; the paths added after it run all 16.
 MAIN_CHUNKS = 4
+# [ops] (phase 8) runs the first half of the feeds: phase 15's
+# dictionary-sharded scans took the room in the script's time budget.
+OPS_CHUNKS = 8
 # The reference package's stand-in for the paper's uPMU channels
 # (benchmarks/common.py, 262,144 samples each): channel c takes template
 # c % 4.  MAG: (level, noise, tap_step, level shifts); 6 tap changes.
@@ -302,6 +322,17 @@ COALESCE_MAX_BLOCKS, COALESCE_BUCKET = 65536, 32
 COALESCE_CHECKED, COALESCE_ORACLE = 16, 4
 COALESCE_ADAPTIVE_STREAMS = 64
 COALESCE_PROFILE_ROUNDS = 6
+# The shard phase: encode plans of SHARD_SHARDS shards on the visible cards
+# round robin (all on cuda:0 on a one-card machine); the dictionary-sharded
+# runs take SHARD_D_SAMPLES a channel at each of SHARD_DICT_SHARDS, and the
+# profiler traces the first SHARD_PROFILE_STEPS block steps of one; the
+# planned coalescer holds SHARD_COALESCE_STREAMS slots.  The
+# dictionary-sharded runs encode turnover traffic, so that every channel's
+# FIFO wraps and hits land on every dictionary shard; ANG_delta's deltas
+# are its levels at SHARD_DEGREES_PER_LEVEL degrees each.
+SHARD_SHARDS, SHARD_DICT_SHARDS, SHARD_D_SAMPLES = 4, (2, 4), 2 ** 16
+SHARD_DEGREES_PER_LEVEL = 0.25
+SHARD_PROFILE_STEPS, SHARD_COALESCE_STREAMS = 64, 64
 # The service phase: [store]'s range requests through DecompressionService
 # (FlushPolicy(max_batch_streams=SERVICE_STREAMS)); the profiler traces
 # the first SERVICE_PROFILED of them.
@@ -887,7 +918,7 @@ def phase_main(torch, dev, card):
     from repro_torch.kernels import encode_step as k1
     from repro_torch.kernels import seq_cumsum as k2
     launches = {"encode_step": 0, "seq_cumsum": 0}
-    first_chunks = {}
+    first_chunks, streams = {}, {}
     step = SAMPLES // CHUNKS
     samples = MAIN_CHUNKS * step
     for cfg_name, cfg in CONFIGS.items():
@@ -993,8 +1024,9 @@ def phase_main(torch, dev, card):
             say(f"[profile] {cfg_name} {what}: "
                 f"{json.dumps(device_profile(torch, fn))} [{card}]")
         first_chunks[cfg_name] = first_chunk(codec, x)
+        streams[cfg_name] = blobs
         del x, ys
-    return launches, first_chunks
+    return launches, first_chunks, streams
 
 
 def first_chunk(codec, x):
@@ -1021,30 +1053,35 @@ def unbounded(torch, dev, cfg_name):
     return x, encode_session(torch, codec, x)
 
 
-def phase_ops(torch, dev, card, x, fused):
-    """MAG with ``matcher="ops"`` on traffic ``x``: K3 once per block step,
-    then the plain tensor step; the streams must equal ``fused``.  Returns
-    K3's launch count on this path."""
+def phase_ops(torch, dev, card, x):
+    """MAG with ``matcher="ops"`` on the first OPS_CHUNKS feeds of traffic
+    ``x``: K3 once per block step, then the plain tensor step; the streams
+    must equal the fused scan's on the same feeds.  Returns K3's launch
+    count on this path."""
     from repro_torch import IdealemCodec
     from repro_torch.kernels import dict_match as k3
     from repro_torch.kernels import encode_step as k1
+    fused = encode_session(torch, IdealemCodec(device=dev, **CONFIGS["MAG"]),
+                           x, chunks=OPS_CHUNKS)
     codec = IdealemCodec(device=dev, matcher="ops", **CONFIGS["MAG"])
+    samples = OPS_CHUNKS * (SAMPLES // CHUNKS)
     k1.launches = k3.launches = 0
     t0 = time.perf_counter()
-    blobs = encode_session(torch, codec, x)
+    blobs = encode_session(torch, codec, x, chunks=OPS_CHUNKS)
     t_enc = time.perf_counter() - t0
     n3, n1 = k3.launches, k1.launches
-    steps = SAMPLES // codec.block_size
+    steps = samples // codec.block_size
     check(n3 == steps and n1 == 0,
           f"MAG ops: one K3 launch per block step ({n3} of {steps}), no K1 "
           f"launch ({n1})")
     check(blobs == fused,
           "MAG ops: streams == the fused (backend=cuda) streams, byte for "
           "byte")
-    res = {"encode_MBps": x.nbytes / t_enc / 1e6, "encode_s": t_enc,
+    res = {"encode_MBps": 8 * CHANNELS * samples / t_enc / 1e6,
+           "encode_s": t_enc,
            "launches": {"dict_match": n3, "encode_step": n1},
            "us_per_block_step": t_enc / steps * 1e6}
-    say(f"[ops] MAG matcher=ops {CHANNELS} ch x {SAMPLES} f64: "
+    say(f"[ops] MAG matcher=ops {CHANNELS} ch x {samples} f64: "
         f"{json.dumps(res)} [{card}]")
     say("[ops] MAG: streams equal the fused streams byte for byte")
     # a shorter window under the profiler: the first 256 block steps
@@ -1409,15 +1446,16 @@ def adaptive_traffic():
     return x
 
 
-def adaptive_encode(torch, codec, x, chunks=None, capture=None):
+def adaptive_encode(torch, codec, x, chunks=None, capture=None, plan=None):
     """``(per-feed segments [channel][feed], the session, the lane widths
     of each feed's dispatch, host seconds in the selectors)`` of the first
-    ``chunks`` feeds of ``x`` through ``codec.session(channels=C)``, ending
-    in a device sync.  ``capture`` (a dict) records the first dispatch
-    whose lanes differ in width: its cohort carry before the scan, its
-    entries and its decisions, for lanes ``capture["lanes"](session)``."""
+    ``chunks`` feeds of ``x`` through ``codec.session(channels=C,
+    plan=plan)``, ending in a device sync.  ``capture`` (a dict) records
+    the first dispatch whose lanes differ in width: its cohort carry before
+    the scan, its entries and its decisions, for lanes
+    ``capture["lanes"](session)``."""
     step, chunks = SAMPLES // CHUNKS, chunks or CHUNKS
-    sess = codec.session(channels=len(x))
+    sess = codec.session(channels=len(x), plan=plan)
     sel_s = [0.0]
 
     def timed(fn):
@@ -1625,7 +1663,7 @@ def phase_adaptive(torch, dev, card):
         f"error {worst}); {len(delta)} delta lanes; K1 launches {n1_b}; hit "
         f"rate {b_hits / (nb * CHANNELS)} (unbounded {hits / (nb * CHANNELS)})"
         f" [{card}]")
-    return n1 + n1_b, mixed_first_feed(codec, x)
+    return n1 + n1_b, mixed_first_feed(codec, x), blobs
 
 
 def mixed_first_feed(codec, x):
@@ -1993,6 +2031,255 @@ def phase_coalesce_adaptive(torch, dev, card):
         x, range(n))
     say(f"[profile] coalesce-adaptive, {COALESCE_PROFILE_ROUNDS} rounds: "
         f"{json.dumps(out)} [{card}]")
+    return launches
+
+
+def session_streams(torch, codec, x, feeds, plan=None):
+    """``(streams, session)``: ``x`` (C, m) fed in ``feeds`` equal chunks
+    to ``codec.session(channels=C, plan=plan)``, ending in a device
+    sync."""
+    step = x.shape[1] // feeds
+    sess = codec.session(channels=len(x), plan=plan)
+    parts = [[] for _ in range(len(x))]
+    for lo in range(0, feeds * step, step):
+        for c, seg in enumerate(sess.feed(x[:, lo:lo + step])):
+            parts[c].append(seg)
+    for c, seg in enumerate(sess.finish()):
+        parts[c].append(seg)
+    torch.cuda.synchronize()
+    return [b"".join(p) for p in parts], sess
+
+
+def dshard_traffic(cfg_name, seed):
+    """``(CHANNELS, SHARD_D_SAMPLES)`` samples whose payload blocks are
+    :func:`turnover`'s (more levels than D, so the FIFO turns over): MAG's
+    blocks as they are; for ANG_delta a running sum of the levels in
+    SHARD_DEGREES_PER_LEVEL steps wrapped into [0, 360), so each block's
+    deltas are one turnover block (its first value is the jump from the
+    block before)."""
+    B = CONFIGS[cfg_name]["block_size"]
+    x = turnover(CHANNELS, -(-SHARD_D_SAMPLES // B), B, seed).reshape(
+        CHANNELS, -1)[:, :SHARD_D_SAMPLES]
+    if CONFIGS[cfg_name]["mode"] == "std":
+        return x
+    return np.mod(np.cumsum(x * SHARD_DEGREES_PER_LEVEL, axis=1), 360.0)
+
+
+def hits_by_shard(blobs, rows, shards):
+    """Hit blocks over the streams by the dictionary shard that holds the
+    slot each hit names (``shards`` shards of ``rows`` rows)."""
+    from repro_torch.core.stream import _walk_all
+    by = np.zeros(shards, dtype=np.int64)
+    for b in blobs:
+        _, is_hit, slot, _ = _walk_all(memoryview(b))
+        by += np.bincount(slot[is_hit] // rows, minlength=shards)
+    return by
+
+
+def shard_devices(torch):
+    """SHARD_SHARDS devices: the visible cards round robin."""
+    return [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(SHARD_SHARDS)]
+
+
+def k3_at_shard_shapes(torch, sess, xs, rel_tol):
+    """K3 on a D-sharded session's final carry, shard by shard (the shapes
+    the scan gave it), against its plain version: bitwise."""
+    from repro_torch.kernels import dict_match as k3
+    from repro_torch.kernels.ref import dict_match_ref
+    shapes = []
+    for row in sess._dev_state.grid:
+        for st in row:
+            x = xs[:st.count.shape[0]].to(st.dmin.device)
+            got = k3.dict_match_cuda(x, st.sorted_blocks, st.dmin, st.dmax,
+                                     rel_tol)
+            want = dict_match_ref(x, st.sorted_blocks, st.dmin, st.dmax,
+                                  rel_tol)
+            torch.cuda.synchronize()
+            check(same_bits(torch, got[0], want[0])
+                  and torch.equal(got[1], want[1]),
+                  f"K3 at the shard shape {tuple(st.sorted_blocks.shape)}: "
+                  "kernel == plain version")
+            shapes.append(tuple(st.sorted_blocks.shape))
+    return shapes
+
+
+def phase_shard(torch, dev, card, main_streams, adaptive_streams):
+    """[shard]: the scale-out encode through ``IdealemCodec.session(plan=)``
+    and ``StreamCoalescer(plan=)``, each plan's SHARD_SHARDS shards on the
+    visible cards (``cuda:0`` SHARD_SHARDS times on one card).  Checks:
+    channel-sharded Table I sessions == ``[main]``'s streams with K1 ==
+    feeds x shards; dictionary-sharded MAG and ANG_delta sessions (and MAG
+    with ``error_bound=3.0``) == the unplanned fused session on the same
+    samples with K3 == block steps x shards and no K1, every channel's FIFO
+    wrapped and hits on every dictionary shard, and K3 == its plain version
+    at each shard's shape; the adaptive session of ``[adaptive]``
+    through a plan == its streams with one K1 chan launch a shard a feed;
+    a planned coalescer of SHARD_COALESCE_STREAMS slots == the unplanned
+    one with K1 == flushes x shards.  Returns the path's launches by
+    kernel."""
+    from repro_torch import IdealemCodec, obs
+    from repro_torch.kernels import dict_match as k3
+    from repro_torch.kernels import encode_step as k1
+    from repro_torch.launch.encode_plan import make_encode_plan
+    from repro_torch.serve import FlushPolicy, StreamCoalescer
+    devs = shard_devices(torch)
+    S = SHARD_SHARDS
+    launches = {"encode_step": 0, "dict_match": 0}
+    step = SAMPLES // CHUNKS
+    # channel-sharded: [main]'s sessions through a plan
+    for cfg_name, cfg in CONFIGS.items():
+        codec = IdealemCodec(device=dev, **cfg)
+        x = make_traffic(cfg_name)[:, :MAIN_CHUNKS * step]
+        plan = make_encode_plan(CHANNELS, block_size=codec.block_size,
+                                devices=devs)
+        check(plan.num_devices == S and plan.padded_channels == CHANNELS,
+              f"shard {cfg_name}: plan {plan.summary()}")
+        k1.launches = k3.launches = 0
+        t0 = time.perf_counter()
+        blobs, sess = session_streams(torch, codec, x, MAIN_CHUNKS, plan)
+        wall = time.perf_counter() - t0
+        n1, n3 = k1.launches, k3.launches
+        launches["encode_step"] += n1
+        check(n1 == MAIN_CHUNKS * S and n3 == 0,
+              f"shard {cfg_name}: K1 launches {n1} == feeds x shards "
+              f"({MAIN_CHUNKS} x {S}), no K3 ({n3})")
+        check(blobs == main_streams[cfg_name],
+              f"shard {cfg_name}: planned streams == [main]'s streams")
+        res = {"shards": S, "devices": sorted({str(d) for d in devs}),
+               "shard_channels": plan.shard_channels,
+               "encode_MBps": x.nbytes / wall / 1e6, "encode_s": wall,
+               "launches": {"encode_step": n1}}
+        say(f"[shard] {cfg_name} channel-sharded {CHANNELS} ch x "
+            f"{x.shape[1]} f64: {json.dumps(res)} [{card}]")
+        del x
+    say("[shard] channel-sharded: streams == [main]'s byte for byte (whose "
+        "K1 decisions on channels 0, 21, 42, 63 -- one in each shard -- "
+        "equal the plain scan)")
+    # dictionary-sharded: K3 a shard a block step, on traffic that turns
+    # the FIFO over so the cross-shard minimum and the owner's insert decide
+    runs = [("MAG", {}, ds) for ds in SHARD_DICT_SHARDS]
+    runs += [("ANG_delta", {}, ds) for ds in SHARD_DICT_SHARDS]
+    runs += [("MAG", BOUNDS["MAG"], 2)]
+    plain = {}
+    traffic = {name: dshard_traffic(name, seed=20 + i)
+               for i, name in enumerate(("MAG", "ANG_delta"))}
+    for cfg_name, extra, ds in runs:
+        codec = IdealemCodec(device=dev, **CONFIGS[cfg_name], **extra)
+        key = (cfg_name, tuple(extra.items()))
+        x = traffic[cfg_name]
+        if key not in plain:
+            plain[key] = session_streams(torch, codec, x, 1)[0]
+        plan = make_encode_plan(CHANNELS, block_size=codec.block_size,
+                                devices=devs[:ds], dict_shards=ds)
+        check(plan.grid == (tuple(devs[:ds]),),
+              f"shard {cfg_name}: one group of {ds} dictionary shards")
+        k1.launches = k3.launches = 0
+        t0 = time.perf_counter()
+        blobs, sess = session_streams(torch, codec, x, 1, plan)
+        wall = time.perf_counter() - t0
+        n1, n3 = k1.launches, k3.launches
+        launches["dict_match"] += n3
+        steps = SHARD_D_SAMPLES // codec.block_size
+        what = f"shard {cfg_name}{' bound' if extra else ''} D/{ds}"
+        check(n3 == steps * ds and n1 == 0,
+              f"{what}: K3 launches {n3} == block steps x shards "
+              f"({steps} x {ds}), no K1 ({n1})")
+        check(blobs == plain[key],
+              f"{what}: streams == the unplanned fused session's")
+        count = sess._dev_state.grid[0][0].count
+        rows = sess._dev_state.partition.shard_rows
+        hits = hits_by_shard(blobs, rows, ds)
+        check(int(count.min()) > codec.num_dict and bool((hits > 0).all()),
+              f"{what}: every channel's FIFO wrapped (inserts "
+              f"{int(count.min())} > D={codec.num_dict}) and every "
+              f"dictionary shard holds hits ({hits.tolist()})")
+        xs = torch.sort(torch.as_tensor(
+            codec._transform(x[:, :codec.block_size])[0], dtype=torch.float32,
+            device=dev), dim=-1).values
+        shapes = k3_at_shard_shapes(torch, sess, xs, codec.rel_tol)
+        res = {"dict_shards": ds, "rows_per_shard": shapes[0][1],
+               "pad_rows": ds * shapes[0][1] - codec.num_dict,
+               "fifo_inserts": [int(count.min()), int(count.max())],
+               "hits_by_shard": hits.tolist(),
+               "encode_s": wall, "us_per_block_step": wall / steps * 1e6,
+               "launches": {"dict_match": n3, "encode_step": n1}}
+        say(f"[shard] {cfg_name}{' error_bound=3.0' if extra else ''} "
+            f"dictionary-sharded {CHANNELS} ch x {SHARD_D_SAMPLES} f64 turnover: "
+            f"{json.dumps(res)} [{card}]")
+    say("[shard] dictionary-sharded: streams == the unplanned fused "
+        "sessions' byte for byte; K3 == its plain version at every shard's "
+        "shape")
+    codec = IdealemCodec(device=dev, **CONFIGS["MAG"])
+    plan = make_encode_plan(CHANNELS, block_size=codec.block_size,
+                            devices=devs[:2], dict_shards=2)
+    window = traffic["MAG"][:, :SHARD_PROFILE_STEPS * codec.block_size]
+    out = device_profile(torch, lambda: session_streams(
+        torch, codec, window, 1, plan), names=("dict_match", "minimum"))
+    say(f"[profile] MAG dictionary-sharded D/2, first {SHARD_PROFILE_STEPS} "
+        f"block steps: {json.dumps(out)} [{card}]")
+    # an adaptive session through a channel plan
+    x = adaptive_traffic()
+    codec = IdealemCodec(device=dev, adaptive=True, **CONFIGS["MAG"])
+    plan = make_encode_plan(CHANNELS, block_size=codec.block_size,
+                            devices=devs).validate_adaptive()
+    k1.launches = k3.launches = 0
+    with k1_calls(k1) as calls:
+        t0 = time.perf_counter()
+        parts, sess, _, _ = adaptive_encode(torch, codec, x, plan=plan)
+        wall = time.perf_counter() - t0
+    n1 = k1.launches
+    launches["encode_step"] += n1
+    check(n1 == len(calls) == CHUNKS * S and k3.launches == 0
+          and all(chan for _, chan in calls)
+          and {sh[0] for sh, _ in calls} == {plan.shard_channels},
+          f"shard adaptive: one K1 chan launch a shard a feed ({n1}, "
+          f"{CHUNKS} x {S} expected)")
+    check([b"".join(p) for p in parts] == adaptive_streams,
+          "shard adaptive: planned streams == [adaptive]'s streams")
+    say(f"[shard] adaptive MAG+ANG {CHANNELS} ch x {SAMPLES} f64, {S} "
+        f"shards: {json.dumps({'encode_MBps': x.nbytes / wall / 1e6, 'encode_s': wall, 'switches': sum(st.mode_switches for st in sess.stats), 'launches': {'encode_step': n1}})}"
+        f" [{card}]")
+    del x
+    # a planned coalescer against the unplanned one
+    n = SHARD_COALESCE_STREAMS
+    policy = FlushPolicy(max_batch_streams=n,
+                         max_batch_blocks=COALESCE_MAX_BLOCKS)
+    reg = obs.registry()
+    for cfg_name, cfg in CONFIGS.items():
+        x = make_traffic(cfg_name, range(n), COALESCE_SAMPLES)
+        plan = make_encode_plan(n, block_size=cfg["block_size"],
+                                devices=devs)
+        got = {}
+        for name, p in (("plain", None), ("planned", plan)):
+            co = StreamCoalescer(policy=policy, capacity=n, plan=p,
+                                 block_bucket=COALESCE_BUCKET, device=dev,
+                                 **cfg)
+            f0 = reg.get_value("repro_encode_flushes_total")
+            k1.launches = 0
+            t0 = time.perf_counter()
+            segs = coalesce_traffic(co, x, range(n))[0]
+            torch.cuda.synchronize()
+            got[name] = (segs, k1.launches, time.perf_counter() - t0,
+                         int(reg.get_value("repro_encode_flushes_total")
+                             - f0))
+        segs, n1, wall, flushes = got["planned"]
+        launches["encode_step"] += n1
+        check(co.capacity == n and n1 == flushes * S
+              and got["plain"][1] == flushes,
+              f"shard coalesce {cfg_name}: K1 launches {n1} == flushes x "
+              f"shards ({flushes} x {S}); unplanned {got['plain'][1]}")
+        check(segs == got["plain"][0],
+              f"shard coalesce {cfg_name}: planned streams == unplanned")
+        res = {"streams": n, "flushes": flushes, "k1_launches": n1,
+               "encode_MBps": x.nbytes / wall / 1e6, "wall_s": wall,
+               "unplanned_wall_s": got["plain"][2]}
+        say(f"[shard] {cfg_name} coalesce, plan of {S} shards: "
+            f"{json.dumps(res)} [{card}]")
+        del x
+    say("[shard] checks passed: planned sessions and coalescers == the "
+        "unplanned ones byte for byte; K1 once a shard a feed or flush, K3 "
+        "once a shard a block step")
     return launches
 
 
@@ -3043,7 +3330,7 @@ def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
 
 
 def phase_timing(torch, dev, card, first_chunks, k2_reads):
-    """Each kernel at its main-path shapes (19.): returns the timings that
+    """Each kernel at its main-path shapes (20.): returns the timings that
     the kernels JSON line reports, by kernel.  ``k2_reads`` holds K2's
     operands on the store's ANG_delta reads."""
     from repro_torch.core.decode import _pow2
@@ -3125,9 +3412,9 @@ def main() -> int:
     phase_k2(torch, dev)
     phase_k3(torch, dev)
     phase_golden(dev)
-    launches, first_chunks = phase_main(torch, dev, card)
+    launches, first_chunks, main_streams = phase_main(torch, dev, card)
     mag = unbounded(torch, dev, "MAG")
-    launches["dict_match"] = phase_ops(torch, dev, card, *mag)
+    launches["dict_match"] = phase_ops(torch, dev, card, mag[0])
     n1, n2 = phase_bound(torch, dev, card, {"MAG": mag})
     del mag
     launches["encode_step"] += int(n1)
@@ -3136,10 +3423,15 @@ def main() -> int:
     launches["encode_step"] += n1
     launches["seq_cumsum"] += n2
     phase_auto(torch, dev, card, first_chunks)
-    n1, first_chunks["adaptive"] = phase_adaptive(torch, dev, card)
+    n1, first_chunks["adaptive"], adaptive_streams = phase_adaptive(
+        torch, dev, card)
     launches["encode_step"] += n1
     launches["encode_step"] += phase_coalesce(torch, dev, card)
     launches["encode_step"] += phase_coalesce_adaptive(torch, dev, card)
+    for name, n in phase_shard(torch, dev, card, main_streams,
+                               adaptive_streams).items():
+        launches[name] += n
+    del main_streams, adaptive_streams
     launches["seq_cumsum"] += phase_service(torch, dev, card, archives)
     del archives
     for name, n in phase_frontend(torch, dev, card).items():

@@ -29,11 +29,19 @@ raw (stream-order) row differs from the block by more than the bound at
 some sample -- or, with ``error_cumulative`` (delta mode), whose running
 sum of differences does -- is demoted to a miss.  The carry then holds the
 raw rows too (``init_state(raw=True)``).
+
+Scale-out (an encode plan's device grid, ``repro_torch.launch.encode_plan``):
+:func:`encode_decisions_sharded` and :func:`encode_decisions_mixed_sharded`
+split the channels over devices, :func:`encode_decisions_dsharded` splits
+each channel's dictionary rows as well and takes each step's lowest
+passing row across the shards; their carry is a :class:`ShardedState`
+(:func:`split_state` / :func:`join_state`).  Decisions are the unsharded
+scan's.
 """
 from __future__ import annotations
 
 import logging
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,7 +55,10 @@ __all__ = ["DictState", "EncoderParams", "ChanParams", "init_state",
            "state_from_numpy", "state_to_numpy", "matcher_reference",
            "resolve_matcher", "encode_decisions", "encode_decisions_batched",
            "encode_decisions_mixed", "chan_params", "repad_state_n",
-           "MATCHERS",
+           "ShardedState", "ShardPartition", "state_partition",
+           "init_sharded_state", "split_state", "join_state", "reset_channel",
+           "encode_decisions_sharded", "encode_decisions_mixed_sharded",
+           "encode_decisions_dsharded", "MATCHERS",
            "load_encode_autotune", "save_encode_autotune",
            "reset_encode_autotune", "encode_autotune_choices",
            "encode_autotune_cached"]
@@ -162,6 +173,18 @@ def _decide(state: DictState, xs, ok, valid, raw=None, xmax=None):
     num_dict = state.sorted_blocks.shape[-2]
     ids = torch.arange(num_dict, dtype=torch.int32, device=xs.device)
     best = torch.where(ok, ids, SENTINEL).amin(-1)
+    return _insert(state, xs, best, valid, ids, num_dict, raw, xmax)
+
+
+def _insert(state: DictState, xs, best, valid, ids, num_dict: int, raw=None,
+            xmax=None):
+    """:func:`_decide` from the lowest passing global row ``best`` (C,)
+    (``SENTINEL`` for none) over a carry whose rows have the global
+    indices ``ids`` (D_shard,) of a dictionary of ``num_dict`` logical
+    rows.  Only the row whose index is the FIFO slot ``count % num_dict``
+    takes an insert, so a dictionary shard that does not own the slot (and
+    any pad row, whose index is ``num_dict`` or more) passes its rows
+    through; ``count`` advances alike on every shard."""
     is_hit = (best < SENTINEL) & valid
     ins = torch.remainder(state.count, num_dict)
     do_ins = ~is_hit & valid
@@ -185,11 +208,11 @@ def _decide(state: DictState, xs, ok, valid, raw=None, xmax=None):
     return new_state, (is_hit, slot, overwrite)
 
 
-def _step(matcher: str, params: EncoderParams, state: DictState, xs, valid,
-          raw):
-    """One step for C channels: sorted candidates ``xs`` (C, n), their raw
-    rows ``raw`` (C, n), ragged-padding mask ``valid`` (C,).  ``matcher``
-    is ``"reference"`` (plain tensor matching) or ``"ops"`` (K3)."""
+def _passing(matcher: str, params: EncoderParams, state: DictState, xs,
+             raw):
+    """``ok`` (C, D): the carry's rows that sorted candidates ``xs`` (C, n)
+    (raw rows ``raw`` (C, n)) may hit.  ``matcher`` is ``"reference"``
+    (plain tensor matching) or ``"ops"`` (K3)."""
     if matcher == "ops":
         from ..kernels import ops
         ks, mm = ops.dict_match(xs, state.sorted_blocks, state.dmin,
@@ -202,11 +225,19 @@ def _step(matcher: str, params: EncoderParams, state: DictState, xs, valid,
         ok = ok & mm
     if params.use_ks:
         ok = ok & (ks <= torch.tensor(params.d_crit, dtype=torch.float32))
-    if params.error_bound is None:
-        return _decide(state, xs, ok, valid)
-    ok = ok & error_gate(raw, state.raw_blocks, params.error_bound,
-                         params.error_cumulative)
-    return _decide(state, xs, ok, valid, raw)
+    if params.error_bound is not None:
+        ok = ok & error_gate(raw, state.raw_blocks, params.error_bound,
+                             params.error_cumulative)
+    return ok
+
+
+def _step(matcher: str, params: EncoderParams, state: DictState, xs, valid,
+          raw):
+    """One step for C channels: sorted candidates ``xs`` (C, n), their raw
+    rows ``raw`` (C, n), ragged-padding mask ``valid`` (C,)."""
+    ok = _passing(matcher, params, state, xs, raw)
+    return _decide(state, xs, ok, valid,
+                   None if params.error_bound is None else raw)
 
 
 # ------------------------------------------- measured matcher autotuning
@@ -559,4 +590,393 @@ def encode_decisions_mixed(
                 a.append(v)
         out = (tuple(torch.stack(a, dim=1) for a in acc) if nb
                else _empty_decisions(C, dev))
+    return (out, state) if return_state else out
+
+
+# ------------------------------------------------------- sharded scale-out
+#
+# One process drives every shard.  A plan's devices form a (channel groups,
+# dictionary shards) grid of ``torch.device``s, and a device may appear
+# more than once (several shards on one card, or on the CPU).  Each shard
+# keeps its slice of the carry resident on its device between calls.
+
+class ShardedState(NamedTuple):
+    """A batched carry split over a grid of shards: ``grid[g][s]`` is the
+    ``DictState`` of channel group ``g``'s dictionary shard ``s`` on that
+    shard's device -- the group's channels, and a contiguous run of the
+    dictionary's rows padded to a multiple of the shard count (pad rows
+    stay ``valid=False``).  ``count`` is replicated over a group's
+    dictionary shards.  :func:`join_state` gives the logical carry."""
+
+    grid: Tuple[Tuple[DictState, ...], ...]
+    num_dict: int   # logical D
+
+    @property
+    def shard_channels(self) -> int:
+        return self.grid[0][0].count.shape[0]
+
+    @property
+    def partition(self) -> "ShardPartition":
+        return state_partition(self.grid, self.shard_channels * len(self.grid),
+                               self.num_dict)
+
+    def map(self, fn) -> "ShardedState":
+        """Apply ``fn`` (DictState -> DictState) to every shard's carry."""
+        return self._replace(grid=tuple(tuple(fn(st) for st in row)
+                                        for row in self.grid))
+
+
+def _copy_to(t: torch.Tensor, device) -> torch.Tensor:
+    """A contiguous copy of ``t`` on ``device`` (never a view of ``t``)."""
+    return t.to(device, copy=True, memory_format=torch.contiguous_format)
+
+
+class ShardPartition(NamedTuple):
+    """How a carry splits over a shard grid (:func:`state_partition`):
+    shard ``(g, s)`` holds channel group ``g``'s ``shard_channels``
+    channels and dictionary shard ``s``'s ``shard_rows`` padded rows."""
+
+    shard_channels: int
+    shard_rows: int
+
+    def channel_slice(self, group: int) -> slice:
+        return slice(group * self.shard_channels,
+                     (group + 1) * self.shard_channels)
+
+    def row_slice(self, shard: int) -> slice:
+        return slice(shard * self.shard_rows, (shard + 1) * self.shard_rows)
+
+    def row_ids(self, shard: int, device) -> torch.Tensor:
+        """The global (logical) indices of shard ``shard``'s rows."""
+        return shard * self.shard_rows + torch.arange(
+            self.shard_rows, dtype=torch.int32, device=device)
+
+
+def state_partition(grid, channels: int, num_dict: int) -> ShardPartition:
+    """The one place that knows how a carry splits over a shard grid:
+    ``channels`` channels (a multiple of the grid's channel groups) split
+    evenly over its groups, and ``num_dict`` rows padded to a multiple of
+    its dictionary shards split evenly over them."""
+    groups, shards = len(grid), len(grid[0])
+    if channels % groups:
+        raise ValueError(
+            f"channels={channels} not divisible by the {groups} channel "
+            f"shards; pad via EncodePlan")
+    return ShardPartition(channels // groups, -(-num_dict // shards))
+
+
+def init_sharded_state(num_dict: int, n: int, grid, *, channels: int,
+                       dtype=torch.float32, raw: bool = False
+                       ) -> ShardedState:
+    """Fresh carry of ``channels`` channels split over ``grid``: each shard
+    an empty dictionary of its padded row count on its device."""
+    p = state_partition(grid, channels, num_dict)
+    return ShardedState(tuple(
+        tuple(init_state(p.shard_rows, n, dtype=dtype,
+                         channels=p.shard_channels, device=dev,
+                         raw=raw) for dev in row) for row in grid), num_dict)
+
+
+def split_state(state: DictState, grid) -> ShardedState:
+    """Split a batched logical carry over ``grid`` (copies on the shards'
+    devices; pad rows zero and invalid)."""
+    C, D = state.sorted_blocks.shape[:2]
+    p = state_partition(grid, C, D)
+    pad = p.shard_rows * len(grid[0]) - D
+
+    def padded(f):
+        if pad == 0 or f.shape[1] == 0:   # (C, 0, n): the bound is off
+            return f
+        return torch.cat([f, f.new_zeros((C, pad) + f.shape[2:])], dim=1)
+
+    fields = {k: padded(f) for k, f in state._asdict().items()
+              if k != "count"}
+    out = []
+    for g, row in enumerate(grid):
+        ch = p.channel_slice(g)
+        shards = []
+        for s, dev in enumerate(row):
+            r = p.row_slice(s)
+            part = {k: _copy_to(f[ch, r] if f.shape[1] else f[ch], dev)
+                    for k, f in fields.items()}
+            shards.append(DictState(count=_copy_to(state.count[ch], dev),
+                                    **part))
+        out.append(tuple(shards))
+    return ShardedState(tuple(out), D)
+
+
+def join_state(state: ShardedState, device=None) -> DictState:
+    """The logical carry of a split one, on ``device`` (default the first
+    shard's): rows joined and cut back to ``num_dict``, ``count`` from
+    each group's first shard, groups joined on the channel axis."""
+    dev = state.grid[0][0].count.device if device is None else device
+    D = state.num_dict
+    groups = []
+    for row in state.grid:
+        def rows(k):
+            parts = [getattr(st, k).to(dev) for st in row]
+            if parts[0].shape[1] == 0:
+                return parts[0]
+            return torch.cat(parts, dim=1)[:, :D]
+        groups.append(DictState(
+            sorted_blocks=rows("sorted_blocks"), dmin=rows("dmin"),
+            dmax=rows("dmax"), valid=rows("valid"),
+            count=row[0].count.to(dev), raw_blocks=rows("raw_blocks")))
+    return DictState(*(torch.cat(f, dim=0) for f in zip(*groups)))
+
+
+def reset_channel(state, c: int) -> None:
+    """Drop channel ``c``'s dictionary in place (a recycled coalescer slot,
+    an adaptive lane's switch): its rows turn ``valid=False`` and its FIFO
+    count rewinds.  ``state`` is a batched ``DictState`` or a
+    ``ShardedState`` (every dictionary shard of the channel's group)."""
+    if isinstance(state, ShardedState):
+        g, c = divmod(c, state.shard_channels)
+        shards = state.grid[g]
+    else:
+        shards = (state,)
+    for st in shards:
+        st.valid[c] = False
+        st.count[c] = 0
+
+
+def _sharded_state(state, grid, *, num_dict, n, channels, dtype, raw):
+    """The carry a sharded scan starts from: ``state`` as given (split if
+    it is a logical ``DictState``) or a fresh one."""
+    if state is None:
+        return init_sharded_state(num_dict, n, grid, channels=channels,
+                                  dtype=dtype, raw=raw)
+    if isinstance(state, DictState):
+        state = split_state(state, grid)
+    if (len(state.grid), len(state.grid[0])) != (len(grid), len(grid[0])):
+        raise ValueError(
+            f"carry split {len(state.grid)} x {len(state.grid[0])} does not "
+            f"match the {len(grid)} x {len(grid[0])} shard grid")
+    if raw and state.grid[0][0].raw_blocks.shape[-2] == 0:
+        raise ValueError("error_bound requires a state created with "
+                         "init_state(..., raw=True)")
+    return state
+
+
+def _gather(outs, dev):
+    """Per-shard decision triples joined on the channel axis on ``dev``."""
+    return tuple(torch.cat([o[i].to(dev) for o in outs], dim=0)
+                 for i in range(3))
+
+
+def _run_channel_shards(blocks_cn, valid, devices, state, scan):
+    """Run ``scan(channels, blocks, valid, carry) -> (out, carry)`` on
+    every channel shard, its slice of the blocks copied to its device;
+    returns the joined decisions (on the first shard's device) and the
+    split carry."""
+    p = state.partition
+    outs, grid = [], []
+    for g, dev in enumerate(devices):
+        ch = p.channel_slice(g)
+        out, st = scan(ch, blocks_cn[ch].to(dev), valid[ch].to(dev),
+                       state.grid[g][0])
+        outs.append(out)
+        grid.append((st,))
+    return _gather(outs, devices[0]), state._replace(grid=tuple(grid))
+
+
+def _channel_grid(devices):
+    devices = [resolve_device(d) for d in devices]
+    return devices, tuple((d,) for d in devices)
+
+
+def encode_decisions_sharded(
+    blocks_cn: torch.Tensor,
+    *,
+    devices,
+    num_dict: int,
+    d_crit: float,
+    rel_tol: float = 0.1,
+    use_minmax: bool = True,
+    use_ks: bool = True,
+    error_bound: Optional[float] = None,
+    error_cumulative: bool = False,
+    matcher: Optional[str] = None,
+    state=None,
+    valid: Optional[torch.Tensor] = None,
+):
+    """Scale-out :func:`encode_decisions_batched`: the channel axis of
+    ``blocks_cn`` (C, nb, n) (on any device) is split evenly over
+    ``devices``, and each shard runs the batched scan on its slice on its
+    device (on ``"fused"`` one K1 launch a shard).  C must be a multiple of
+    the shard count -- pad channels and mask them with ``valid`` (an
+    ``EncodePlan`` computes the padding).  Decisions are those of the
+    unsharded batched scan, bit for bit; they come back joined on the
+    first shard's device.
+
+    ``state`` is a logical ``DictState`` (split on entry) or the
+    :class:`ShardedState` a previous call returned, whose shards stay on
+    their devices; a resumable call returns the ``ShardedState``
+    (:func:`join_state` gives the logical carry)."""
+    C, nb, n = blocks_cn.shape
+    devices, grid = _channel_grid(devices)
+    m = resolve_matcher(matcher, num_dict=num_dict, n=n,
+                        dtype=blocks_cn.dtype, device=devices[0])
+    return_state = state is not None
+    state = _sharded_state(state, grid, num_dict=num_dict, n=n, channels=C,
+                           dtype=blocks_cn.dtype, raw=error_bound is not None)
+    if valid is None:
+        valid = torch.ones((C, nb), dtype=torch.bool)
+    kw = dict(num_dict=num_dict, d_crit=d_crit, rel_tol=rel_tol,
+              use_minmax=use_minmax, use_ks=use_ks, error_bound=error_bound,
+              error_cumulative=error_cumulative, matcher=m)
+
+    def scan(ch, blocks, v, st):
+        return encode_decisions_batched(blocks, state=st, valid=v, **kw)
+
+    out, state = _run_channel_shards(blocks_cn, valid, devices, state, scan)
+    return (out, state) if return_state else out
+
+
+def encode_decisions_mixed_sharded(
+    blocks_cn: torch.Tensor,
+    *,
+    devices,
+    num_dict: int,
+    n_valid,
+    d_crit,
+    rel_tol: float = 0.1,
+    use_minmax: bool = True,
+    use_ks: bool = True,
+    error_bound: Optional[float] = None,
+    error_cumulative=None,
+    eb_on=None,
+    matcher: Optional[str] = None,
+    state=None,
+    valid: Optional[torch.Tensor] = None,
+):
+    """Channel-sharded :func:`encode_decisions_mixed`: the cohort's channel
+    axis and its per-channel host arrays split over ``devices`` as in
+    :func:`encode_decisions_sharded` (on ``"fused"`` one K1 launch with
+    its ``chan`` operand a shard).  Inactive pad lanes carry
+    ``valid=False`` blocks and any width; ``state`` and the return forms
+    are those of :func:`encode_decisions_sharded`."""
+    C, nb, n = blocks_cn.shape
+    devices, grid = _channel_grid(devices)
+    m = _resolve_mixed_matcher(matcher)
+    return_state = state is not None
+    state = _sharded_state(state, grid, num_dict=num_dict, n=n, channels=C,
+                           dtype=blocks_cn.dtype, raw=error_bound is not None)
+    if valid is None:
+        valid = torch.ones((C, nb), dtype=torch.bool)
+    lanes = dict(
+        n_valid=np.asarray(n_valid), d_crit=np.asarray(d_crit),
+        error_cumulative=np.zeros(C, bool) if error_cumulative is None
+        else np.asarray(error_cumulative),
+        eb_on=np.ones(C, bool) if eb_on is None else np.asarray(eb_on))
+
+    def scan(ch, blocks, v, st):
+        return encode_decisions_mixed(
+            blocks, num_dict=num_dict, rel_tol=rel_tol,
+            use_minmax=use_minmax, use_ks=use_ks, error_bound=error_bound,
+            matcher=m, state=st, valid=v,
+            **{k: a[ch] for k, a in lanes.items()})
+
+    out, state = _run_channel_shards(blocks_cn, valid, devices, state, scan)
+    return (out, state) if return_state else out
+
+
+def _step_dshard(matcher: str, params: EncoderParams, num_dict: int,
+                 states, ids, xs, valid, raw):
+    """One block step of one channel group over its dictionary shards:
+    per shard ``states[s]`` (rows with the global indices ``ids[s]``) and
+    the step's operands on its device, ``xs[s]`` (C, n) sorted, ``valid[s]``
+    (C,), ``raw[s]`` (C, n).  Each shard matches against its own rows and
+    takes its lowest passing global index; the minimum over the shards
+    (the reference's ``pmin``) is formed on the first shard's device and
+    copied back; the shard that owns the FIFO slot takes the insert.
+    Returns the new carries and the decisions (from the first shard)."""
+    firsts = []
+    for st, i, x, r in zip(states, ids, xs, raw):
+        ok = _passing(matcher, params, st, x, r)
+        firsts.append(torch.where(ok, i, SENTINEL).amin(-1))
+    best = firsts[0]
+    for f in firsts[1:]:
+        best = torch.minimum(best, f.to(best.device))
+    eb = params.error_bound is not None
+    new, decs = [], []
+    for st, i, x, v, r in zip(states, ids, xs, valid, raw):
+        st, dec = _insert(st, x, best.to(x.device), v, i, num_dict,
+                          r if eb else None)
+        new.append(st)
+        decs.append(dec)
+    return new, decs[0]
+
+
+def encode_decisions_dsharded(
+    blocks_cn: torch.Tensor,
+    *,
+    grid,
+    num_dict: int,
+    d_crit: float,
+    rel_tol: float = 0.1,
+    use_minmax: bool = True,
+    use_ks: bool = True,
+    error_bound: Optional[float] = None,
+    error_cumulative: bool = False,
+    matcher: Optional[str] = None,
+    state=None,
+    valid: Optional[torch.Tensor] = None,
+):
+    """Dictionary-sharded encoder over a (channel groups, dictionary
+    shards) ``grid`` of devices: channels split over the groups as in
+    :func:`encode_decisions_sharded`, and within a group every channel's
+    dictionary rows split over its shards (D padded to a multiple of the
+    shard count with invalid rows).  Each block step runs the matcher on
+    every shard's rows (on ``"ops"`` one K3 launch a shard), takes the
+    lowest passing global row across the shards, and inserts on the shard
+    that owns the FIFO slot.  Decisions are those of the unsharded batched
+    scan, bit for bit.
+
+    The fused scan cannot run here -- its in-kernel insert would have to
+    follow the cross-shard minimum -- so ``"fused"``, and ``"auto"`` when
+    it measures ``"fused"``, resolve to ``"ops"`` (K3), as in the reference
+    package.  ``state`` and the return forms are those of
+    :func:`encode_decisions_sharded`."""
+    C, nb, n = blocks_cn.shape
+    grid = tuple(tuple(resolve_device(d) for d in row) for row in grid)
+    m = resolve_matcher(matcher, num_dict=num_dict, n=n,
+                        dtype=blocks_cn.dtype, device=grid[0][0])
+    if m == "fused":
+        m = "ops"
+    return_state = state is not None
+    state = _sharded_state(state, grid, num_dict=num_dict, n=n, channels=C,
+                           dtype=blocks_cn.dtype, raw=error_bound is not None)
+    if valid is None:
+        valid = torch.ones((C, nb), dtype=torch.bool)
+    params = EncoderParams(
+        float(d_crit), float(rel_tol), bool(use_minmax), bool(use_ks),
+        error_bound=None if error_bound is None else float(error_bound),
+        error_cumulative=bool(error_cumulative))
+    p = state.partition
+    outs, new_grid = [], []
+    for g, row in enumerate(grid):
+        ch = p.channel_slice(g)
+        # the group's blocks once per distinct device, block-major so each
+        # step's operands are contiguous; sorted once (hoisted)
+        per_dev = {}
+        for dev in row:
+            if dev not in per_dev:
+                b = blocks_cn[ch].to(dev)
+                per_dev[dev] = tuple(t.transpose(0, 1).contiguous() for t in (
+                    torch.sort(b, dim=-1).values, valid[ch].to(dev), b))
+        ids = [p.row_ids(s, dev) for s, dev in enumerate(row)]
+        states = list(state.grid[g])
+        acc = ([], [], [])
+        for b in range(nb):
+            step = [tuple(t[b] for t in per_dev[dev]) for dev in row]
+            states, dec = _step_dshard(
+                m, params, num_dict, states, ids, *zip(*step))
+            for a, v in zip(acc, dec):
+                a.append(v)
+        outs.append(tuple(torch.stack(a, dim=1) for a in acc) if nb
+                    else _empty_decisions(p.shard_channels, row[0]))
+        new_grid.append(tuple(states))
+    out = _gather(outs, grid[0][0])
+    state = state._replace(grid=tuple(new_grid))
     return (out, state) if return_state else out

@@ -175,8 +175,9 @@ class IdealemCodec:
         """Open a resumable streaming session with this configuration.
         ``container=True`` makes ``finish()`` return one indexed
         random-access container (``repro_torch.store``) over all channels
-        instead of the final segments.  ``plan`` (sharded sessions) is not
-        ported yet and raises."""
+        instead of the final segments.  ``plan``
+        (``repro_torch.launch.encode_plan.make_encode_plan``) spreads the
+        scan over the plan's devices, with the same bytes."""
         return IdealemSession(self, channels=channels,
                               emit_segments=emit_segments, dtype=dtype,
                               plan=plan, container=container)

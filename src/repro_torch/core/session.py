@@ -35,6 +35,13 @@ operand).  Matchers without a masked variant (``"ops"``, ``"auto"``) take
 a per-channel loop, as does every session while the environment variable
 ``REPRO_TORCH_ADAPTIVE_LOOP`` is set (the oracle arm for tests).
 
+``plan=`` (``repro_torch.launch.encode_plan.EncodePlan``) spreads the
+scan over the plan's devices: the channels padded to the plan's padded
+count (pad lanes masked), each shard's carry resident on its device
+between feeds, the dictionary rows split too when ``dict_shards > 1``
+(static sessions only).  The bytes are those of the session without a
+plan.
+
 ``container=True`` also appends every emitted segment to an in-memory
 indexed container (``repro_torch.store``); ``finish()`` then returns that
 container.  Sessions count into the port's registry (``repro_torch.obs``)
@@ -90,13 +97,19 @@ _M_COHORT = obs.registry().histogram(
     buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0,
              1024.0))
 
-# Raised for ``plan=`` (sharded encode) by sessions and the coalescer.
-PLAN_NOT_PORTED = ("encode plans (sharded sessions) are not ported yet "
-                   "(ROADMAP Queue 1 item 9)")
-
 # Forces the per-channel loop in adaptive sessions (the port's own variable:
 # the reference package's REPRO_ADAPTIVE_LOOP is not read).
 _ADAPTIVE_LOOP_ENV = "REPRO_TORCH_ADAPTIVE_LOOP"
+
+
+def _planned_scan(plan, blocks_cn, **kw):
+    """One resumable scan through an encode plan (``state`` the
+    ``ShardedState`` on the plan's grid): the dictionary-sharded scan when
+    the plan splits the rows, else the channel-sharded one."""
+    from .encoder import encode_decisions_dsharded, encode_decisions_sharded
+    if plan.dict_shards > 1:
+        return encode_decisions_dsharded(blocks_cn, grid=plan.grid, **kw)
+    return encode_decisions_sharded(blocks_cn, devices=plan.devices, **kw)
 
 
 def _mixed_matcher_name(codec) -> Optional[str]:
@@ -126,12 +139,21 @@ class MixedCohort:
     the lanes differ in mode, width, threshold or error metric;
     ``dispatches`` counts them and ``stage_s`` sums the host seconds spent
     staging the batches (padding them and copying them to the device).
+
+    With an encode ``plan`` the lanes are the plan's padded channels, split
+    over its devices (one scan a shard, each shard's carry on its device),
+    and the cohort cannot grow.
     """
 
     def __init__(self, num_dict: int, capacity: int, *, rel_tol: float,
                  use_minmax: bool = True, use_ks: bool = True,
                  error_bound: Optional[float] = None,
-                 matcher: Optional[str] = None, device=None):
+                 matcher: Optional[str] = None, device=None, plan=None):
+        if plan is not None and capacity != plan.padded_channels:
+            raise ValueError(
+                f"cohort capacity {capacity} != plan padded_channels "
+                f"{plan.padded_channels}")
+        self.plan = plan
         self.num_dict = int(num_dict)
         self.capacity = int(capacity)
         self.rel_tol = float(rel_tol)
@@ -140,7 +162,9 @@ class MixedCohort:
         self.error_bound = None if error_bound is None else float(error_bound)
         self.matcher = matcher
         self.device = resolve_device(device)
-        self.state = None  # batched DictState, width padded to _n_max
+        # batched DictState (a ShardedState with a plan), width padded to
+        # _n_max
+        self.state = None
         self._n_max = 0
         self.lane_n = np.zeros(self.capacity, dtype=np.int64)
         self.dispatches = 0
@@ -150,16 +174,18 @@ class MixedCohort:
         """Drop one lane's dictionary (selector switch): its rows turn
         ``valid=False`` and its FIFO count rewinds; every other lane's
         carry is untouched.  Updates the cohort's own carry in place."""
+        from .encoder import reset_channel
         self.lane_n[lane] = 0
         if self.state is not None:
-            self.state.valid[lane] = False
-            self.state.count[lane] = 0
+            reset_channel(self.state, lane)
 
     def grow(self, capacity: int) -> None:
         """Extend the lane axis; new lanes start empty."""
         add = int(capacity) - self.capacity
         if add <= 0:
             return
+        if self.plan is not None:
+            raise ValueError("plan-pinned cohorts cannot grow")
         self.lane_n = np.concatenate(
             [self.lane_n, np.zeros(add, dtype=np.int64)])
         if self.state is not None:
@@ -176,7 +202,9 @@ class MixedCohort:
         the valid mask (a coalescer passes its bucketed length).  Returns
         ``{lane: (is_hit, slot, overwrite)}`` cut back to each entry's block
         count, after the one host sync."""
-        from .encoder import encode_decisions_mixed, init_state, repad_state_n
+        from .encoder import (encode_decisions_mixed,
+                              encode_decisions_mixed_sharded,
+                              init_sharded_state, init_state, repad_state_n)
 
         t0 = time.perf_counter()
         for lane, p, *_ in entries:
@@ -198,21 +226,34 @@ class MixedCohort:
             err_cum[lane] = ec
             eb_on[lane] = ebo
         eb = self.error_bound
+        plan = self.plan
         if self.state is None:
-            self.state = init_state(self.num_dict, n_max,
-                                    channels=self.capacity,
-                                    device=self.device, raw=eb is not None)
+            self.state = (
+                init_state(self.num_dict, n_max, channels=self.capacity,
+                           device=self.device, raw=eb is not None)
+                if plan is None else
+                init_sharded_state(self.num_dict, n_max, plan.grid,
+                                   channels=self.capacity, raw=eb is not None))
         elif n_max != self._n_max:
-            self.state = repad_state_n(self.state, n_max)
+            self.state = (repad_state_n(self.state, n_max) if plan is None
+                          else self.state.map(
+                              lambda st: repad_state_n(st, n_max)))
         self._n_max = n_max
-        batch = torch.as_tensor(batch, device=self.device)
-        valid = torch.as_tensor(valid, device=self.device)
+        # with a plan each shard copies its own lanes to its device
+        dev = self.device if plan is None else None
+        batch = torch.as_tensor(batch, device=dev)
+        valid = torch.as_tensor(valid, device=dev)
         self.stage_s += time.perf_counter() - t0
-        (h, s, o), self.state = encode_decisions_mixed(
-            batch, num_dict=self.num_dict, n_valid=np.maximum(self.lane_n, 1),
-            d_crit=d_crit, rel_tol=self.rel_tol, use_minmax=self.use_minmax,
-            use_ks=self.use_ks, error_bound=eb, error_cumulative=err_cum,
-            eb_on=eb_on, matcher=self.matcher, state=self.state, valid=valid)
+        kw = dict(num_dict=self.num_dict, n_valid=np.maximum(self.lane_n, 1),
+                  d_crit=d_crit, rel_tol=self.rel_tol,
+                  use_minmax=self.use_minmax, use_ks=self.use_ks,
+                  error_bound=eb, error_cumulative=err_cum, eb_on=eb_on,
+                  matcher=self.matcher, state=self.state, valid=valid)
+        if plan is None:
+            (h, s, o), self.state = encode_decisions_mixed(batch, **kw)
+        else:
+            (h, s, o), self.state = encode_decisions_mixed_sharded(
+                batch, devices=plan.devices, **kw)
         self.dispatches += 1
         _M_DISPATCH["adaptive_batched"].inc()
         _M_COHORT.observe(float(len(entries)))
@@ -273,10 +314,16 @@ class IdealemSession:
     def __init__(self, codec: "IdealemCodec", channels: Optional[int] = None,
                  emit_segments: bool = True, dtype=np.float64, plan=None,
                  container: bool = False):
-        if plan is not None:
-            raise ValueError(PLAN_NOT_PORTED)
         if channels is not None and channels < 1:
             raise ValueError("channels must be >= 1")
+        C = channels if channels is not None else 1
+        if plan is not None:
+            if codec.backend == "numpy":
+                raise ValueError("encode plans need a device backend")
+            if plan.channels != C:
+                raise ValueError(
+                    f"plan is for {plan.channels} channels, session has {C}")
+        self.plan = plan  # launch.encode_plan.EncodePlan
         self.codec = codec
         self.channels = channels
         self.emit_segments = emit_segments
@@ -293,7 +340,9 @@ class IdealemSession:
         self._started = [False] * C  # any segment emitted yet (per channel)
         self._finished = False
         self._stats = [SessionStats() for _ in range(C)]
-        self._dev_state = None   # batched DictState (torch / cuda backends)
+        # batched DictState (torch / cuda backends; a ShardedState with a
+        # plan)
+        self._dev_state = None
         self._np_states = None   # list[NpDictState] (numpy backend)
         # adaptive sessions: each channel's current codec variant and
         # quantized d_crit; a switch resets the channel's dictionary and
@@ -310,6 +359,14 @@ class IdealemSession:
                 raise ValueError(
                     "adaptive sessions require emit_segments=True (mode "
                     "switches live at segment restarts)")
+            if plan is not None:
+                # the batched mixed scan shards the channel axis only
+                plan.validate_adaptive()
+                if _mixed_matcher_name(codec) is None:
+                    raise ValueError(
+                        "adaptive sessions with an encode plan need the "
+                        "reference or fused matcher (the batched mixed scan "
+                        f"has no masked variant of {codec.matcher!r})")
             from .select import ChannelSelector
             self._selectors = [
                 ChannelSelector(codec.block_size, mode=codec.mode,
@@ -349,6 +406,8 @@ class IdealemSession:
         # codec matcher ("ops", "auto", ...) overrides
         kw["matcher"] = cdc.matcher or (
             "fused" if cdc.backend == "cuda" else None)
+        if self.plan is not None:
+            return self._decide_planned(payload_cn, kw)
         # payloads reach the scan as f32 whatever the stream dtype
         pt = torch.as_tensor(payload_cn, dtype=torch.float32,
                              device=cdc.torch_device)
@@ -358,6 +417,29 @@ class IdealemSession:
                                          raw=eb is not None)
         (h, s, o), self._dev_state = encode_decisions_batched(
             pt, state=self._dev_state, **kw)
+        h, s, o = (v.cpu().numpy() for v in (h, s, o))
+        return [(h[ci], s[ci], o[ci]) for ci in range(self._C)]
+
+    def _decide_planned(self, payload_cn: np.ndarray, kw: dict):
+        """:meth:`_decide` through the encode plan: channels padded to the
+        plan's count (pad lanes masked, their decisions dropped), each
+        shard's slice copied to its device, one scan a shard (the
+        dictionary-sharded scan when the plan splits rows)."""
+        from .encoder import init_sharded_state
+        plan = self.plan
+        pad = plan.padded_channels - self._C
+        # payloads reach the scan as f32 whatever the stream dtype
+        pt = torch.as_tensor(payload_cn, dtype=torch.float32)
+        if pad:
+            pt = torch.cat([pt, pt.new_zeros((pad,) + pt.shape[1:])])
+        valid = torch.ones(pt.shape[:2], dtype=torch.bool)
+        valid[self._C:] = False
+        if self._dev_state is None:
+            self._dev_state = init_sharded_state(
+                kw["num_dict"], pt.shape[-1], plan.grid,
+                channels=plan.padded_channels, raw="error_bound" in kw)
+        (h, s, o), self._dev_state = _planned_scan(
+            plan, pt, state=self._dev_state, valid=valid, **kw)
         h, s, o = (v.cpu().numpy() for v in (h, s, o))
         return [(h[ci], s[ci], o[ci]) for ci in range(self._C)]
 
@@ -389,16 +471,21 @@ class IdealemSession:
                                         **self._channel_kw(ci))[0]
                     for ci in range(self._C)]
         if self._mixed is None and not self._mixed_disabled:
-            m = (None if os.environ.get(_ADAPTIVE_LOOP_ENV)
-                 else _mixed_matcher_name(cdc0))
+            # a plan always takes the batched arm (its matcher was checked)
+            force_loop = (os.environ.get(_ADAPTIVE_LOOP_ENV)
+                          and self.plan is None)
+            m = None if force_loop else _mixed_matcher_name(cdc0)
             if m is None:
                 self._mixed_disabled = True
             else:
                 self._mixed = MixedCohort(
-                    cdc0.num_dict, self._C, rel_tol=float(cdc0.rel_tol),
+                    cdc0.num_dict,
+                    (self._C if self.plan is None
+                     else self.plan.padded_channels),
+                    rel_tol=float(cdc0.rel_tol),
                     use_minmax=cdc0.use_minmax, use_ks=cdc0.use_ks,
                     error_bound=cdc0.error_bound, matcher=m,
-                    device=cdc0.torch_device)
+                    device=cdc0.torch_device, plan=self.plan)
         if self._mixed is None:
             return self._decide_adaptive_loop(payloads)
         dec = self._mixed.decide([

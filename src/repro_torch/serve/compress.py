@@ -21,8 +21,11 @@ its ``FlushPolicy`` trips, cuts ONE padded device batch (streams stacked on
 the channel axis, ragged block counts masked) and scatters the encoded
 segments back per stream.  On ``backend="cuda"`` a flush is one launch of
 the fused scan K1 (``csrc/encode_step.cu``); an adaptive codec's flush is
-one launch of K1 with its ``chan`` operand.  Per-stream bytes are those the
-per-stream service would emit.
+one launch of K1 with its ``chan`` operand.  With an encode plan
+(``StreamCoalescer(plan=...)``) the slot axis is split over the plan's
+devices: one such launch a shard, or, for a plan that splits the
+dictionary rows, one K3 launch a shard a block step.  Per-stream bytes are
+those the per-stream service would emit.
 
 ``DecompressionService`` is the symmetric read path: range requests
 against packed containers (``repro_torch.store``), answered from an LRU of
@@ -37,6 +40,7 @@ the reference package's metric names.
 """
 from __future__ import annotations
 
+import functools
 import time
 from collections import OrderedDict
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
@@ -48,9 +52,10 @@ import torch
 from .. import api, obs
 from ..core import IdealemCodec
 from ..core import decode as decode_mod
-from ..core.encoder import encode_decisions_batched, init_state
-from ..core.session import (PLAN_NOT_PORTED, IdealemSession, MixedCohort,
-                            SessionStats, _mixed_matcher_name)
+from ..core.encoder import (encode_decisions_batched, init_sharded_state,
+                            init_state, reset_channel)
+from ..core.session import (IdealemSession, MixedCohort, SessionStats,
+                            _mixed_matcher_name, _planned_scan)
 from ..device import resolve_device
 from ..errors import ApiError
 from ..store import (Container, decode_channels, decode_range, gather_parts,
@@ -263,17 +268,18 @@ class StreamCoalescer:
     flush decides the whole cohort in one masked mixed-mode scan
     (``MixedCohort``) -- ``reference`` or ``fused`` matchers only.
 
-    The slot table doubles on demand.  ``block_bucket`` rounds the padded
-    scan length up so recurring traffic reuses a few shapes.  ``plan``
-    (sharding the slot axis over devices) is not ported yet and raises.
+    ``plan`` (``repro_torch.launch.encode_plan.EncodePlan``) splits the
+    slot axis over its devices, each shard's carry resident on its device;
+    the capacity is then pinned to the plan's padded channel count.
+    Without a plan the slot table doubles on demand.  ``block_bucket``
+    rounds the padded scan length up so recurring traffic reuses a few
+    shapes.
     """
 
     def __init__(self, policy: Optional[FlushPolicy] = None, plan=None,
                  capacity: int = 64, block_bucket: int = 32,
                  dtype=np.float64, clock: Optional[Callable[[], float]] = None,
                  **codec_kwargs):
-        if plan is not None:
-            raise ValueError(PLAN_NOT_PORTED)
         self._codec = IdealemCodec(**codec_kwargs)
         if self._codec.backend == "numpy":
             raise ValueError("StreamCoalescer batches on device; use "
@@ -284,8 +290,15 @@ class StreamCoalescer:
                 "adaptive coalescing needs the reference or fused matcher "
                 "(the batched mixed scan has no masked variant of "
                 f"{self._codec.matcher!r})")
+        if plan is not None and plan.channels != plan.padded_channels:
+            raise ValueError("coalescer plans must be made for a padded "
+                             "channel count (channels % devices == 0)")
+        if self._adaptive and plan is not None and plan.dict_shards > 1:
+            raise ValueError("adaptive coalescing shards the slot axis "
+                             "only; build the plan with dict_shards=1")
         self.policy = policy or FlushPolicy()
-        self._capacity = capacity
+        self.plan = plan
+        self._capacity = plan.padded_channels if plan is not None else capacity
         self._bucket = max(1, block_bucket)
         self._dtype = np.dtype(dtype)
         self._sessions: Dict[str, IdealemSession] = {}
@@ -428,11 +441,13 @@ class StreamCoalescer:
         if self._mixed is not None:
             self._mixed.reset_lane(slot)
         if self._state is not None:
-            self._state.valid[slot] = False
-            self._state.count[slot] = 0
+            reset_channel(self._state, slot)
 
     def _grow(self) -> None:
         """Double the slot axis; the new slots start empty."""
+        if self.plan is not None:
+            raise RuntimeError(
+                f"coalescer at plan-pinned capacity {self._capacity}")
         old = self._capacity
         self._capacity = old * 2
         self._free.extend(range(self._capacity - 1, old - 1, -1))
@@ -500,12 +515,18 @@ class StreamCoalescer:
             batch[slot, :prep.nb] = prep.payloads[0]
             valid[slot, :prep.nb] = True
 
-        dev = cdc.torch_device
+        plan = self.plan
+        # with a plan each shard copies its own slots to its device
+        dev = cdc.torch_device if plan is None else None
         eb = cdc.error_bound
         if self._state is None:
-            self._state = init_state(cdc.num_dict, n_lem,
-                                     channels=self._capacity, device=dev,
-                                     raw=eb is not None)
+            self._state = (
+                init_state(cdc.num_dict, n_lem, channels=self._capacity,
+                           device=dev, raw=eb is not None)
+                if plan is None else
+                init_sharded_state(cdc.num_dict, n_lem, plan.grid,
+                                   channels=self._capacity,
+                                   raw=eb is not None))
         kw = dict(num_dict=cdc.num_dict, d_crit=float(cdc.d_crit),
                   rel_tol=float(cdc.rel_tol), use_minmax=cdc.use_minmax,
                   use_ks=cdc.use_ks)
@@ -516,9 +537,11 @@ class StreamCoalescer:
         # codec matcher overrides
         kw["matcher"] = cdc.matcher or (
             "fused" if cdc.backend == "cuda" else None)
-        (h, s, o), self._state = encode_decisions_batched(
-            torch.as_tensor(batch, device=dev), state=self._state,
-            valid=torch.as_tensor(valid, device=dev), **kw)
+        bt = torch.as_tensor(batch, device=dev)
+        vt = torch.as_tensor(valid, device=dev)
+        scan = (encode_decisions_batched if plan is None
+                else functools.partial(_planned_scan, plan))
+        (h, s, o), self._state = scan(bt, state=self._state, valid=vt, **kw)
         h, s, o = (v.cpu().numpy() for v in (h, s, o))  # the one sync
 
         out = {}
@@ -557,7 +580,8 @@ class StreamCoalescer:
                 cdc.num_dict, self._capacity, rel_tol=float(cdc.rel_tol),
                 use_minmax=cdc.use_minmax, use_ks=cdc.use_ks,
                 error_bound=cdc.error_bound,
-                matcher=_mixed_matcher_name(cdc), device=cdc.torch_device)
+                matcher=_mixed_matcher_name(cdc), device=cdc.torch_device,
+                plan=self.plan)
         entries = []
         for sid, prep in prepared.items():
             sess = self._sessions[sid]

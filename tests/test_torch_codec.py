@@ -157,9 +157,16 @@ def test_unported_options_raise():
             _codec(**kw)
     with pytest.raises(ValueError, match="streaming-only"):
         _codec(adaptive=True).encode(np.zeros(64))
+    # encode plans are ported: the port raises where the reference does,
+    # on a plan made for another channel count and on a dictionary-sharded
+    # plan for an adaptive session
+    from repro_torch.launch.encode_plan import make_encode_plan
     codec = _codec()
-    with pytest.raises(ValueError, match="item 9"):
-        codec.session(plan=object())
+    with pytest.raises(ValueError, match="plan is for 2 channels"):
+        codec.session(plan=make_encode_plan(2, devices=["cpu"] * 2))
+    with pytest.raises(ValueError, match="dict_shards=1"):
+        _codec(adaptive=True).session(plan=make_encode_plan(
+            1, devices=["cpu"] * 2, dict_shards=2))
     with pytest.raises(ValueError, match="container output"):
         _codec(adaptive=True).session(container=True)
 

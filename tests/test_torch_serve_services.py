@@ -356,8 +356,16 @@ def test_coalescer_rejects_numpy_backend_and_plans():
     kw = dict(mode="std", block_size=B, num_dict=8, device="cpu")
     with pytest.raises(ValueError, match="numpy backend"):
         StreamCoalescer(backend="numpy", **kw)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 9"):
-        StreamCoalescer(plan=object(), **kw)
+    # encode plans are ported: the port raises where the reference does,
+    # on a plan whose channels are not a padded count and on a
+    # dictionary-sharded plan for an adaptive coalescer
+    from repro_torch.launch.encode_plan import make_encode_plan
+    with pytest.raises(ValueError, match="padded channel count"):
+        StreamCoalescer(plan=make_encode_plan(3, devices=["cpu"] * 2), **kw)
+    with pytest.raises(ValueError, match="dict_shards=1"):
+        StreamCoalescer(plan=make_encode_plan(2, devices=["cpu"] * 2,
+                                              dict_shards=2),
+                        adaptive=True, **kw)
     co = StreamCoalescer(**kw)
     co.open_stream("a")
     with pytest.raises(ValueError, match="1-D"):
