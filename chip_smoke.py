@@ -3,7 +3,7 @@
 
 It drives both of the port's paths: the codec round trip with its indexed
 store, serving services, network front end and scale-out encode (phases
-3-17) and the LM serve path (phases 18-19).
+3-17) and the LM serve path (phases 18-20).
 
 Run from the root of a checkout, with no arguments:
 
@@ -203,9 +203,10 @@ Phases, each fatal on failure (no failure is caught):
               counts.
 19. serve  -- granite-3-8b at full width (weights from a seeded
               ``torch.Generator``) through ``ServeEngine.generate``: 8
-              numpy-seeded prompts of 256 tokens, 64 greedy tokens,
-              max_seq 2048.  Checks: one K4 launch per layer and step
-              (12,800); K4 == its plain version on the last layer's
+              numpy-seeded prompts of 256 tokens, 16 greedy tokens (64
+              before phase 20 took the room), max_seq 2048.  Checks: one
+              K4 launch per layer and step (10,880); K4 == its plain
+              version on the last layer's
               operands of the last step; over 32 teacher-forced steps the
               ``backend="cuda"`` logits within ``SERVE_LOGIT_TOL`` of
               ``backend="torch"``; ``prefill_step`` (the forward) at the
@@ -216,7 +217,31 @@ Phases, each fatal on failure (no failure is caught):
               (device operations a step; K4's and its combine kernel's
               device ms), and the host's milliseconds to issue those steps
               unprofiled beside their wall time.
-20. timing -- each kernel at a main-path shape against its plain version
+20. families -- the other decode families at published widths, one at
+              a time (each freed before the next), weights from a seeded
+              ``torch.Generator``, through ``ServeEngine.generate``: 8
+              numpy-seeded prompts of 64 tokens, 16 greedy tokens, max_seq
+              512 (``FAMILIES``): granite-moe-1b-a400m, rwkv6-3b,
+              zamba2-1.2b (38 layers, 6 shared-attention applications) and
+              whisper-tiny (4 + 4 encoder layers, cross caches of 1,500) at
+              full depth, mixtral-8x22b at 4 of 56 layers and
+              llama-3.2-vision-90b at 10 of 100 (cross caches of 1,024):
+              one card's 80 GB.  Checks, each fatal: the FULL config's
+              parameter count (meta device) == the reference's; K4
+              launches == self-attention layers x steps (0 for RWKV6); K4
+              == its plain version on the last self-attention layer's
+              operands; over 16 teacher-forced steps ``backend="cuda"``
+              logits within ``SERVE_LOGIT_TOL`` of ``"torch"`` (in float32
+              for rwkv6, zamba2 and mixtral: see ``FAMILIES``); the
+              forward against the decode (float32 argmax agreement above
+              0.9 for rwkv6 and zamba2, the bfloat16 contract at the last
+              forced position for the others, a MoE's forward at a
+              capacity that drops no copy); whisper's encoder output
+              finite; logits finite and tokens in range.  Prints weight
+              and peak GB, prefill and decode tokens/s, ms a decode step,
+              device operations a step from a card-only trace of 8 steps,
+              the host's ms to issue them, and each part's seconds.
+21. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
@@ -252,7 +277,8 @@ ROOT = Path(__file__).resolve().parent
 
 CHANNELS, SAMPLES, CHUNKS = 64, 2 ** 20, 16
 # The fused main path (phase 7) runs the first quarter of the feeds, to
-# keep the run short; the paths added after it run all 16.
+# keep the run short; the paths added after it run all 16 but [ops]
+# (below).
 MAIN_CHUNKS = 4
 # [ops] (phase 8) runs the first half of the feeds: phase 15's
 # dictionary-sharded scans took the room in the script's time budget.
@@ -359,7 +385,8 @@ FRONTEND_SLOS = {"POST /v1/feed": 0.5, "POST /v1/decode": 1.0}
 FRONTEND_MAX_AGE_S = 0.1
 # The serve phase: granite-3-8b at full width, a few requests of a
 # realistic prompt length at the engine's default max_seq.
-SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "granite-3-8b", 8, 256, 64
+# SERVE_GEN was 64 before the families phase took the room.
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "granite-3-8b", 8, 256, 16
 SERVE_MAX_SEQ = 2048
 # Teacher-forced steps compared between the K4 and plain attention cores,
 # and decode steps traced under the profiler.
@@ -373,6 +400,29 @@ K4_TOL = 1e-5
 # bfloat16 rounding boundary lands one bfloat16 ulp (2**-8 relative) apart,
 # and such differences pass through 40 residual layers into the logits.
 SERVE_LOGIT_TOL = 0.25
+# The families phase: the other decode families at published widths, a few
+# requests each.  (arch, layers run or None for the full depth, the FULL
+# config's parameter count as the reference counts it).  Mixtral's experts
+# and the VLM's layers do not fit one card's 80 GB at full depth: 4 of 56
+# layers hold ~21 GB of bfloat16 experts, 10 of 100 (two super-blocks of
+# four self-attention layers and a cross layer) ~26 GB.
+# The last field is the dtype in which backend="cuda" and "torch" logits
+# are compared over the forced steps.  bfloat16 where the model allows it,
+# as [serve] does; float32 where one bfloat16 ulp between the two
+# attention cores' outputs grows past SERVE_LOGIT_TOL: the recurrent
+# families (the reference runs their decode checks in float32; zamba2's
+# bfloat16 logits moved 0.335, SSM states carrying the ulp through 38
+# layers) and mixtral (0.989: the ulp flipped a top-2 routing choice), both
+# on an NVIDIA H100 80GB HBM3 at 700 W.  granite-moe's bfloat16 logits
+# stayed within 0.121.
+FAMILIES = (("granite-moe-1b-a400m", None, 1_334_628_352, "bfloat16"),
+            ("rwkv6-3b", None, 2_905_541_120, "float32"),
+            ("zamba2-1.2b", None, 1_104_777_344, "float32"),
+            ("whisper-tiny", None, 36_439_680, "bfloat16"),
+            ("mixtral-8x22b", 4, 140_630_071_296, "float32"),
+            ("llama-3.2-vision-90b", 10, 87_666_794_496, "bfloat16"))
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN, FAMILY_MAX_SEQ = 8, 64, 16, 512
+FAMILY_FORCED, FAMILY_PROFILED = 16, 8
 
 T_START = time.perf_counter()
 
@@ -847,18 +897,20 @@ def turnover(C, nb, n, seed):
     return rng.normal(level, 1.0, (C, nb, n))
 
 
-def device_profile(torch, fn, names=()):
+def device_profile(torch, fn, names=(), cpu=True):
     """Run ``fn`` under ``torch.profiler``: wall seconds (host clock, ending
     in a sync), the union of the card's activity intervals (kernels and
     copies), the summed device time of the busiest names and of the names
     that hold each of ``names``.  A trace that holds no device activity
     (seen now and then after many traces in one process) is taken again,
-    up to 3 runs; ``runs`` says how many were made."""
+    up to 3 runs; ``runs`` says how many were made.  ``cpu=False`` traces
+    the card alone (host operators untraced: a trace of ~25,000 kernels
+    and their host operators took ~11 s to read back)."""
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     for runs in range(1, 4):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -3286,6 +3338,219 @@ def phase_serve(torch, dev, card):
     return launches
 
 
+def phase_families(torch, dev, card):
+    """The other decode families at published widths through
+    ``ServeEngine.generate``, one at a time (each model is freed before
+    the next is built).  Returns K4's launches on their main path."""
+    import repro_torch.models.attention as attn
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as k4
+    from repro_torch.launch.serve import memory_len
+    from repro_torch.models import lm
+    from repro_torch.models.layers import unembed
+    from repro_torch.serve import ServeEngine
+    total = 0
+    for arch, depth, n_want, cmp_dtype in FAMILIES:
+        t_start = time.perf_counter()
+        full = get_config(arch)
+        n_params = full.param_count()
+        check(n_params == n_want, f"{arch} parameters {n_params} == {n_want}")
+        t_count = time.perf_counter()
+        cfg = full if depth is None else full.replace(num_layers=depth)
+        M = memory_len(cfg)
+        attn_layers = sum(k in lm.SELF_ATTN_KINDS
+                          for k in lm.layer_kinds(cfg))
+        gen = torch.Generator(device=dev)
+        params = lm.init_params(cfg, gen.manual_seed(0), dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t_count
+        weight_bytes = tree_bytes(params)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (FAMILY_BATCH, FAMILY_PROMPT)).astype(np.int32)
+        engine = ServeEngine(cfg, params, max_seq=FAMILY_MAX_SEQ,
+                             memory_len=M, device=dev)
+        engine.generate(prompts[:, :1], 1)  # warm-up: cuBLAS handles, K4
+        torch.cuda.synchronize()
+
+        # the main path, with K4's last operands kept (the last
+        # self-attention layer of the last step)
+        seen = {}
+        real = attn.flash_decode
+
+        def keep(*args):
+            seen["args"] = args
+            return real(*args)
+
+        torch.cuda.reset_peak_memory_stats()
+        attn.flash_decode = keep
+        try:
+            k4.launches = 0
+            out = engine.generate(prompts, FAMILY_GEN)
+            launches = k4.launches
+        finally:
+            attn.flash_decode = real
+        peak = torch.cuda.max_memory_allocated()
+        want = attn_layers * (FAMILY_PROMPT + FAMILY_GEN)
+        check(launches == want, f"{arch}: K4 launches {launches} == {want} "
+              f"({attn_layers} self-attention layers a step)")
+        check(out.shape == (FAMILY_BATCH, FAMILY_GEN) and out.min() >= 0
+              and out.max() < cfg.vocab_size, f"{arch}: tokens {out.shape}")
+        total += launches
+        late_err = None
+        if attn_layers:
+            q, kc, vc, valid = seen.pop("args")
+            got = k4.flash_decode(q, kc, vc, valid)
+            late_err = float((got - k4.flash_decode_torch(q, kc, vc, valid))
+                             .abs().max())
+            check(late_err <= K4_TOL, f"{arch}: K4 == plain on the last "
+                  f"self-attention layer's operands ({late_err})")
+            del q, kc, vc, valid, got
+        seen.clear()
+        prefill_s = engine.stats["prefill_s"]
+        decode_s = engine.stats["decode_s"]
+        t_gen = time.perf_counter()
+
+        forced = torch.from_numpy(prompts[:, :FAMILY_FORCED]).to(dev).long()
+        mem = (None if not M else torch.zeros(
+            (FAMILY_BATCH, M, cfg.d_model), dtype=cfg.dtype, device=dev))
+
+        def teacher_forced(c, p, backend):
+            cache = lm.init_cache(c, FAMILY_BATCH, FAMILY_MAX_SEQ, M,
+                                  device=dev)
+            steps = []
+            for t in range(FAMILY_FORCED):
+                lg, cache = lm.decode_step(p, cache, forced[:, t:t + 1], c,
+                                           backend=backend)
+                steps.append(lg[:, 0])
+            return torch.stack(steps, dim=1), cache
+
+        def compare(c, p):
+            """backend=cuda against backend=torch over the forced steps;
+            the cuda logits."""
+            lg = {b: teacher_forced(c, p, b)[0] for b in ("torch", "cuda")}
+            diff = float((lg["cuda"] - lg["torch"]).abs().max())
+            agree = float((lg["cuda"].argmax(-1) == lg["torch"].argmax(-1))
+                          .float().mean())
+            check(bool(torch.isfinite(lg["cuda"]).all()),
+                  f"{arch}: finite logits")
+            check(diff <= SERVE_LOGIT_TOL,
+                  f"{arch}: backend=cuda logits within {SERVE_LOGIT_TOL} of "
+                  f"backend=torch over {FAMILY_FORCED} teacher-forced steps "
+                  f"in {c.dtype} ({diff})")
+            return lg["cuda"], diff, agree
+
+        # the bfloat16 decode from which the profiled steps start
+        dec_logits, cache = teacher_forced(cfg, params, "cuda")
+        check(bool(torch.isfinite(dec_logits).all()),
+              f"{arch}: finite {cfg.dtype} logits")
+        if cmp_dtype == "bfloat16":
+            dec_logits, diff, agree = compare(cfg, params)
+        fwd = {}
+        if cfg.family not in ("ssm", "hybrid"):
+            # the reference's bfloat16 contract at the last forced
+            # position.  A decode step routes one token a row, so no
+            # expert's capacity drops a copy; a MoE's forward runs at the
+            # capacity that drops none either (C = S), else its capacity
+            # drops (the reference's training semantics) would be the
+            # difference
+            fcfg = cfg if cfg.family != "moe" else cfg.replace(
+                capacity_factor=cfg.num_experts / cfg.experts_per_token)
+            x, _ = lm.forward_hidden(params, forced, fcfg, mem)
+            f, d = unembed(params["embed"], x[:, -1:], cfg)[:, 0], \
+                dec_logits[:, -1]
+            check(bool(torch.isfinite(f).all()) and bool(torch.all(
+                (f - d).abs() <= 0.75 + 0.1 * d.abs())),
+                f"{arch}: forward logits within atol 0.75 / rtol 0.1 of the "
+                f"decode path's ({float((f - d).abs().max())})")
+            fwd = {"contract": "bfloat16 atol 0.75 / rtol 0.1",
+                   "capacity_factor": fcfg.capacity_factor,
+                   "max_diff": float((f - d).abs().max()),
+                   "greedy_agreement": float((f.argmax(-1) == d.argmax(-1))
+                                             .float().mean())}
+            del x, f, d
+        enc = None
+        if cfg.family == "audio":  # the encoder over stubbed frames
+            frames = torch.randn((FAMILY_BATCH, M, cfg.d_model), device=dev,
+                                 generator=gen.manual_seed(1))
+            h = lm.encode_frames(params, frames, cfg)
+            check(h.shape == frames.shape and bool(torch.isfinite(h).all()),
+                  f"{arch}: encode_frames {tuple(h.shape)} finite")
+            enc = list(h.shape)
+            del frames, h
+        del dec_logits, mem
+        t_forced = time.perf_counter()
+
+        # FAMILY_PROFILED decode steps under the profiler, from the forced
+        # cache, then the same steps unprofiled (host issue vs wall)
+        tok = forced[:, -1:]
+
+        def steps():
+            c = cache
+            for _ in range(FAMILY_PROFILED):
+                _, c = lm.decode_step(params, c, tok, cfg)
+        prof = device_profile(torch, steps, names=(
+            "flash_decode_split", "flash_decode_combine"), cpu=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps()
+        issue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        del params, engine, cache, steps
+        torch.cuda.empty_cache()
+        t_prof = time.perf_counter()
+
+        if cmp_dtype == "float32":
+            # compared in float32 (FAMILIES says why), from the same seed;
+            # the recurrent families also hold the reference's recurrent
+            # contract (tests/test_serve_and_data.py) there
+            c32 = cfg.replace(dtype=torch.float32)
+            p32 = lm.init_params(c32, gen.manual_seed(0), dev)
+            dec32, diff, agree = compare(c32, p32)
+            if cfg.family in ("ssm", "hybrid"):
+                x, _ = lm.forward_hidden(p32, forced, c32)
+                f = unembed(p32["embed"], x, c32)
+                a = float((f.argmax(-1) == dec32.argmax(-1)).float().mean())
+                check(a > 0.9, f"{arch}: float32 forward vs decode argmax "
+                      f"agreement {a} > 0.9")
+                fwd = {"contract": "float32 argmax agreement > 0.9",
+                       "max_diff": float((f - dec32).abs().max()),
+                       "greedy_agreement": a}
+                del x, f
+            del p32, dec32
+            torch.cuda.empty_cache()
+        res = {
+            "arch": arch, "family": cfg.family, "params_full": n_params,
+            "layers_run": cfg.num_layers, "layers_full": full.num_layers,
+            "self_attention_layers": attn_layers, "memory_len": M,
+            "weight_GB": weight_bytes / 1e9, "peak_GB": peak / 1e9,
+            "batch": FAMILY_BATCH, "prompt": FAMILY_PROMPT,
+            "generated": FAMILY_GEN, "max_seq": FAMILY_MAX_SEQ,
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "prefill_tok_s": FAMILY_BATCH * FAMILY_PROMPT / prefill_s,
+            "decode_tok_s": FAMILY_BATCH * FAMILY_GEN / decode_s,
+            "decode_step_ms": decode_s / FAMILY_GEN * 1e3,
+            "k4_launches": launches, "k4_late_step_err": late_err,
+            "forced_compared_in": cmp_dtype,
+            "forced_logit_max_diff": diff,
+            "forced_greedy_agreement": agree, "forward": fwd or None,
+            "encoder_out": enc,
+            "device_ops_per_step": prof["device_events"] / FAMILY_PROFILED,
+            "step_issue_ms": issue_s / FAMILY_PROFILED * 1e3,
+            "step_wall_ms": window_s / FAMILY_PROFILED * 1e3,
+            "phase_s": {"param_count": t_count - t_start, "init": init_s,
+                        "generate": t_gen - t_count - init_s,
+                        "forced_and_forward": t_forced - t_gen,
+                        "profile": t_prof - t_forced,
+                        "float32": time.perf_counter() - t_prof},
+        }
+        say(f"[families] {json.dumps(res)} [{card}]")
+        say(f"[profile] {arch} {FAMILY_PROFILED} decode steps "
+            f"(B={FAMILY_BATCH}, position {FAMILY_FORCED}): "
+            f"{json.dumps(prof)} [{card}]")
+    return total
+
+
 def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
     """K4 at a serve shape with every cache position valid (a full ring),
     against its bound, its plain version and one PyTorch call
@@ -3330,7 +3595,7 @@ def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
 
 
 def phase_timing(torch, dev, card, first_chunks, k2_reads):
-    """Each kernel at its main-path shapes (20.): returns the timings that
+    """Each kernel at its main-path shapes (21.): returns the timings that
     the kernels JSON line reports, by kernel.  ``k2_reads`` holds K2's
     operands on the store's ANG_delta reads."""
     from repro_torch.core.decode import _pow2
@@ -3438,6 +3703,7 @@ def main() -> int:
         launches[name] += n
     phase_k4(torch, dev)
     launches["flash_decode"] = phase_serve(torch, dev, card)
+    launches["flash_decode"] += phase_families(torch, dev, card)
     timed = phase_timing(torch, dev, card, first_chunks, k2_reads)
 
     def entry(name, source, replaces):

@@ -1,10 +1,10 @@
-"""Architecture registry of the port: the dense decoders it serves.
+"""Architecture registry of the port: nine of the reference's ten.
 
 Each module defines ``FULL`` (the published configuration, as in the
 reference package's ``repro/configs``) and ``SMOKE`` (a reduced
-same-family configuration for CPU tests).  The reference's other
-architectures (moe, ssm, hybrid, vlm, audio, and gemma3's banded prefill)
-are not ported yet: :func:`get_config` raises for them.
+same-family configuration for CPU tests).  gemma3-27b, whose prefill takes
+the banded sliding-window path, is not ported yet: :func:`get_config`
+raises for it.
 """
 from __future__ import annotations
 
@@ -14,10 +14,24 @@ from ..models.common import UNPORTED
 
 __all__ = ["ARCHS", "ALIASES", "get_config"]
 
-ARCHS = ["granite_3_8b", "glm4_9b", "stablelm_12b"]
+ARCHS = [
+    "granite_moe_1b_a400m",
+    "mixtral_8x22b",
+    "granite_3_8b",
+    "stablelm_12b",
+    "glm4_9b",
+    "zamba2_1_2b",
+    "rwkv6_3b",
+    "llama_3_2_vision_90b",
+    "whisper_tiny",
+]
 
 # canonical ids (dash form) -> module name
 ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+ALIASES.update({
+    "zamba2-1.2b": "zamba2_1_2b",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
+})
 
 
 def get_config(arch: str, smoke: bool = False):

@@ -392,10 +392,19 @@ def encode_decisions_batched(
     else:
         params = EncoderParams(float(d_crit), float(rel_tol),
                                bool(use_minmax), bool(use_ks), **eb)
+        # a step with no valid channel (the padding of a coalescer's
+        # block bucket) leaves the carry as it is and decides all-zero
+        # (``_decide``): it is skipped, and its zeros written directly
+        live = valid.any(dim=0).tolist()
+        idle = (torch.zeros(C, dtype=torch.bool, device=dev),
+                torch.zeros(C, dtype=torch.int32, device=dev),
+                torch.zeros(C, dtype=torch.bool, device=dev))
         acc = ([], [], [])
         for b in range(nb):
-            state, dec = _step(m, params, state, xs_all[:, b], valid[:, b],
-                               blocks_cn[:, b])
+            dec = idle
+            if live[b]:
+                state, dec = _step(m, params, state, xs_all[:, b],
+                                   valid[:, b], blocks_cn[:, b])
             for a, v in zip(acc, dec):
                 a.append(v)
         out = (tuple(torch.stack(a, dim=1) for a in acc) if nb

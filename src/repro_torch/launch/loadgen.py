@@ -99,13 +99,42 @@ def arrival_chunks(trace: np.ndarray, kind: str, seed: int):
 
 
 # ------------------------------------------------------------------ tenants
+def tenant_oracle(idx: int, samples: int, cfg_direct, cfg_coal,
+                  device) -> dict:
+    """One tenant's traces, chunks and expected answers, computed before
+    any traffic: the shadow session's segments of the direct stream, the
+    one-shot decode of the coalesced stream's trace and the decode of the
+    shadow bytes that the range reads are held to.  The client and the
+    server share one event loop, so a check computed between requests
+    would stall every tenant's requests for as long as its plain scan
+    runs (the one-shot encode of a 4,096-sample trace held decodes for
+    0.1-0.46 s under a loaded CPU) and the server's latency would carry
+    the load generator's own work.  The reference's load generator
+    computes these between requests, inside the traffic window."""
+    from repro_torch.core import IdealemCodec
+    grid = power_grid_trace(samples, seed=1000 + idx)
+    sensor = bursty_sensor_trace(samples, seed=2000 + idx)
+    direct_codec = IdealemCodec.from_config(cfg_direct, device=device)
+    coal_codec = IdealemCodec.from_config(cfg_coal, device=device)
+    g_chunks = list(arrival_chunks(grid, "grid", seed=idx))
+    s_chunks = list(arrival_chunks(sensor, "burst", seed=idx))
+    shadow = direct_codec.session()
+    shadow_bytes = b"".join([shadow.feed(c) for c in g_chunks]
+                            + [shadow.finish()])
+    return {"g_chunks": g_chunks, "s_chunks": s_chunks,
+            "shadow_bytes": shadow_bytes,
+            "direct_decoded": direct_codec.decode(shadow_bytes),
+            "coal_decoded": coal_codec.decode(coal_codec.encode(sensor)),
+            "coal_codec": coal_codec}
+
+
 async def run_tenant(host: str, port: int, tenant_id: str, idx: int,
-                     samples: int, cfg_direct, cfg_coal, device,
+                     oracle: dict, cfg_direct, cfg_coal,
                      report: dict) -> None:
     """One tenant's closed loop: a direct power-grid stream (byte-diffed
     against a shadow session) and a coalesced bursty-sensor stream
-    (decode-diffed), then a decode phase through the batched mux."""
-    from repro_torch.core import IdealemCodec
+    (decode-diffed), then a decode phase through the batched mux.  The
+    expected answers come from :func:`tenant_oracle`."""
     from repro_torch.errors import RateLimitedError, ReproError
     from repro_torch.serve import FrontendClient
     from repro_torch.store import pack
@@ -113,11 +142,6 @@ async def run_tenant(host: str, port: int, tenant_id: str, idx: int,
     t = {"tenant": tenant_id, "feeds": 0, "bytes_in": 0, "bytes_out": 0,
          "byte_diffs": 0, "decode_diffs": 0, "retries": 0, "decodes": 0}
     report["tenants"].append(t)
-    grid = power_grid_trace(samples, seed=1000 + idx)
-    sensor = bursty_sensor_trace(samples, seed=2000 + idx)
-    direct_codec = IdealemCodec.from_config(cfg_direct, device=device)
-    shadow = direct_codec.session()
-    coal_codec = IdealemCodec.from_config(cfg_coal, device=device)
 
     async with FrontendClient(host, port, tenant_id) as c:
         await c.open("grid", cfg_direct, coalesce=False)
@@ -140,33 +164,28 @@ async def run_tenant(host: str, port: int, tenant_id: str, idx: int,
                 t["bytes_out"] += len(r.segment)
                 return r.segment
 
-        shadow_segments = []
-        g_iter = arrival_chunks(grid, "grid", seed=idx)
-        s_iter = arrival_chunks(sensor, "burst", seed=idx)
+        g_iter, s_iter = iter(oracle["g_chunks"]), iter(oracle["s_chunks"])
         g_chunk, s_chunk = next(g_iter, None), next(s_iter, None)
         while g_chunk is not None or s_chunk is not None:
             if g_chunk is not None:
                 wire_direct.append(await feed("grid", g_chunk))
-                shadow_segments.append(shadow.feed(g_chunk))
                 g_chunk = next(g_iter, None)
             if s_chunk is not None:
                 wire_coal.append(await feed("sensor", s_chunk))
                 s_chunk = next(s_iter, None)
         wire_direct.append((await c.close_stream("grid")).segment)
         wire_coal.append((await c.close_stream("sensor")).segment)
-        shadow_segments.append(shadow.finish())
 
         direct_bytes = b"".join(wire_direct)
-        if direct_bytes != b"".join(shadow_segments):
+        if direct_bytes != oracle["shadow_bytes"]:
             t["byte_diffs"] += 1
-        got = coal_codec.decode(b"".join(wire_coal))
-        want = coal_codec.decode(coal_codec.encode(sensor))
-        if not np.array_equal(got, want):
+        got = oracle["coal_codec"].decode(b"".join(wire_coal))
+        if not np.array_equal(got, oracle["coal_decoded"]):
             t["decode_diffs"] += 1
 
         # decode phase: serve the direct stream's bytes back through the mux
         await c.attach("store", pack(direct_bytes))
-        ref = direct_codec.decode(direct_bytes)
+        ref = oracle["direct_decoded"]
         B = cfg_direct.block_size
         total_blocks = len(ref) // B
         rng = np.random.default_rng(3000 + idx)
@@ -245,11 +264,12 @@ async def run(args) -> dict:
     fe = await ServeFrontend(policy=policy, quotas=quotas,
                              decode_backend=cfg_direct.decode_backend,
                              device=args.device).start()
+    oracles = [tenant_oracle(i, args.samples, cfg_direct, cfg_coal,
+                             fe.device) for i in range(args.tenants)]
     t0 = time.perf_counter()
     try:
         jobs = [run_tenant(fe.host, fe.port, f"tenant-{i:02d}", i,
-                           args.samples, cfg_direct, cfg_coal, fe.device,
-                           report)
+                           oracles[i], cfg_direct, cfg_coal, report)
                 for i in range(args.tenants)]
         jobs.append(run_noisy_tenant(fe.host, fe.port, report))
         await asyncio.gather(*jobs)

@@ -1,11 +1,13 @@
 """Serving launcher: batched decode with the port's ServeEngine.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --batch 8 --prompt-len 256 --gen 64 --max-seq 2048
 
 runs on the card (``--device cuda``, the default) with weights drawn from a
 seeded ``torch.Generator``; ``--smoke --device cpu`` runs the reduced
-configuration on the host.
+configuration on the host.  ``--arch`` takes every ported architecture
+(default rwkv6-3b, the reference launcher's); the vlm and audio families
+get cross caches of ``num_image_tokens`` / ``encoder_seq`` positions.
 """
 from __future__ import annotations
 
@@ -20,9 +22,15 @@ from ..models import lm
 from ..serve import ServeEngine
 
 
+def memory_len(cfg) -> int:
+    """The cross caches' length, as the reference's launcher derives it."""
+    return (cfg.num_image_tokens if cfg.family == "vlm"
+            else cfg.encoder_seq if cfg.family == "audio" else 0)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-8b",
+    ap.add_argument("--arch", default="rwkv6-3b",
                     choices=sorted(ALIASES))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
@@ -39,6 +47,7 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, dev)
     engine = ServeEngine(cfg, params, max_seq=args.max_seq,
+                         memory_len=memory_len(cfg),
                          temperature=args.temperature, device=dev)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size,

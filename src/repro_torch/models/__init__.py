@@ -1,2 +1,3 @@
-"""The LM serve path's models (dense decoders): config, layers, attention
-with the K4 decode kernel, and the layer stack."""
+"""The LM serve path's models (every family but gemma3's banded prefill):
+config, layers, attention with the K4 decode kernel, MoE, SSM and RWKV
+layers, and the layer stack."""

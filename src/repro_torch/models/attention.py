@@ -29,8 +29,9 @@ import torch
 from ..kernels.flash_decode import NEG_INF, flash_decode, flash_decode_torch
 from .common import ModelConfig, dense_init
 
-__all__ = ["rope", "rope_angles", "init_attention", "attention", "KVCache", "init_kv_cache",
-           "ring_valid", "decode_attention", "prefill_kv", "BACKENDS"]
+__all__ = ["rope", "rope_angles", "init_attention", "attention",
+           "cross_attention", "KVCache", "init_kv_cache", "ring_valid",
+           "decode_attention", "prefill_kv", "BACKENDS"]
 
 #: ``"cuda"``: the decode core through K4 (its plain version on CPU
 #: tensors); ``"torch"``: the plain version on any device.
@@ -63,8 +64,11 @@ def rope(x, positions, theta: float = 1e4):
 
 
 # -------------------------------------------------------------- param blocks
-def init_attention(cfg: ModelConfig, generator=None, device=None):
-    """Projection weights in ``cfg.dtype`` (see ``models.layers``)."""
+def init_attention(cfg: ModelConfig, generator=None, device=None,
+                   cross: bool = False):
+    """Projection weights in ``cfg.dtype`` (see ``models.layers``).  A
+    cross-attention block (``cross=True``) has the same four projections,
+    as in the reference."""
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     kw = dict(dtype=cfg.dtype, generator=generator, device=device)
     return {
@@ -91,8 +95,8 @@ def _flash(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
             and S % chunk == 0 and S // chunk > window // chunk + 1):
         raise NotImplementedError(
             f"banded sliding-window prefill (S={S}, window={window}, "
-            f"chunk={chunk}) is not ported: see ROADMAP.md Queue 1 item 12 "
-            f"(_flash_banded)")
+            f"chunk={chunk}) is not ported: see ROADMAP.md Queue 1 item "
+            f"12.3 (_flash_banded)")
     pad = (-T) % chunk
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -153,6 +157,26 @@ def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
         k = rope(k, positions, cfg.rope_theta)
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     o = _flash(q, k, v, positions, positions, causal=causal, window=window,
+               chunk=cfg.attn_chunk)
+    return o.reshape(B, S, h * hd) @ p["wo"].to(dt)
+
+
+def cross_attention(p, x, memory, cfg: ModelConfig):
+    """x (B,S,d) attends to memory (B,M,d): no mask, no RoPE, over the
+    same chunked core.  K and V take the promoted type of ``memory`` and
+    the compute dtype, as jnp's mixed products do."""
+    B, S, _ = x.shape
+    M = memory.shape[1]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dt = x.dtype
+    mt = torch.promote_types(memory.dtype, dt)
+    q = (x @ p["wq"].to(dt)).reshape(B, S, h, hd)
+    k = (memory.to(mt) @ p["wk"].to(mt)).reshape(B, M, kvh, hd)
+    v = (memory.to(mt) @ p["wv"].to(mt)).reshape(B, M, kvh, hd)
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    qp = torch.arange(S, dtype=torch.int32, device=x.device)
+    kp = torch.arange(M, dtype=torch.int32, device=x.device)
+    o = _flash(q, k, v, qp, kp, causal=False, window=None,
                chunk=cfg.attn_chunk)
     return o.reshape(B, S, h * hd) @ p["wo"].to(dt)
 

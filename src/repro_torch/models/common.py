@@ -1,9 +1,11 @@
 """Model configuration and parameter initialization of the LM serve path.
 
 The counterpart of ``repro/models/common.py``: the same :class:`ModelConfig`
-fields, with torch dtypes.  The reference's logical-axis sharding rules
-(``logical``, ``set_sharding_rules``) have no counterpart yet: they belong
-with the multi-device port (ROADMAP Queue 1 items 9 and 12).
+fields and defaults, with torch dtypes.  The reference's logical-axis
+sharding rules (``logical``, ``set_sharding_rules``), its expert-parallel
+switch (``moe_expert_parallel``) and its training fields (``remat``,
+``train_microbatches``) have no counterpart yet: they belong with training
+and sharding (ROADMAP Queue 1 items 12.4 and 12.5).
 """
 from __future__ import annotations
 
@@ -16,16 +18,17 @@ import torch
 
 __all__ = ["ModelConfig", "dense_init", "UNPORTED"]
 
-#: Where each family that the port does not serve yet stands in ROADMAP.md.
-UNPORTED = "ROADMAP.md Queue 1 item 12 (LM substrate: moe, ssm/rwkv, " \
-    "hybrid, vlm/audio)"
+#: Where what the port does not serve yet stands in ROADMAP.md: banded
+#: prefill (gemma3-27b), training, and dryrun and sharding.
+UNPORTED = "ROADMAP.md Queue 1 items 12.3 (banded prefill, gemma3-27b), " \
+    "12.4 (training) and 12.5 (dryrun, sharding)"
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The reference's fields that the dense serve path reads; the fields
-    of the other families (MoE, SSM, hybrid, VLM, audio) and of training
-    come with their slices."""
+    """The reference's fields that the serve path reads, letter for letter
+    (``repro/models/common.py:18-76``); the training fields come with
+    training."""
     name: str = "model"
     family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int = 2
@@ -35,10 +38,26 @@ class ModelConfig:
     d_ff: int = 512
     vocab_size: int = 256
     head_dim: Optional[int] = None
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
     # attention pattern
     sliding_window: Optional[int] = None   # SWA on all attention layers
     local_global_ratio: int = 0            # N local layers per global
     local_window: int = 1024
+    # ssm / hybrid
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    attn_every: int = 0                    # zamba2: shared attn every k layers
+    # vlm
+    cross_attn_every: int = 0
+    num_image_tokens: int = 0
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0
     # misc
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
@@ -46,11 +65,21 @@ class ModelConfig:
     act: str = "swiglu"  # swiglu | gelu
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
+    rwkv_chunk: int = 64
+    ssm_chunk: int = 128
     attn_chunk: int = 1024
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

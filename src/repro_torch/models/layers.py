@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from .common import ModelConfig, dense_init
 
 __all__ = ["init_rmsnorm", "rmsnorm", "init_mlp", "mlp", "init_embed",
-           "embed", "unembed"]
+           "embed", "full_float32", "unembed"]
 
 
 def init_rmsnorm(d: int, dtype=torch.float32, device=None):
@@ -69,7 +69,7 @@ def embed(p, tokens, cfg: ModelConfig):
 
 
 @contextmanager
-def _full_float32():
+def full_float32():
     """Float32 products in full float32 (no TF32) inside the block, the
     caller's setting restored after it."""
     before = torch.backends.cuda.matmul.allow_tf32
@@ -84,5 +84,5 @@ def unembed(p, x, cfg: ModelConfig):
     """Float32 logits against the float32 table (or untied unembedding),
     in full float32 on the card whatever the caller's TF32 setting."""
     w = p["table"].T if cfg.tie_embeddings else p["unembed"]
-    with _full_float32():
+    with full_float32():
         return x.float() @ w.float()

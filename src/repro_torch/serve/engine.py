@@ -1,8 +1,8 @@
 """LM serving: prefill and batched greedy or sampled decode.
 
 The counterpart of ``repro/serve/engine.py``'s ``serve_step``,
-``prefill_step`` and ``ServeEngine`` for the dense family.  Every decode
-step runs K4 once per attention layer.
+``prefill_step`` and ``ServeEngine`` for every ported family.  Every decode
+step runs K4 once per self-attention layer (none for RWKV6).
 
 ``FlushPolicy`` is the serving layer's shared micro-batching knob: the
 compression services (``serve.compress``) accumulate per-client payloads
@@ -82,19 +82,23 @@ def serve_step(params, cache: lm.DecodeCache, tokens, cfg: ModelConfig):
     return lm.decode_step(params, cache, tokens, cfg)
 
 
-def prefill_step(params, tokens, cfg: ModelConfig):
-    """Full-prompt forward -> float32 logits (B,1,V) of the last position."""
-    x, _ = lm.forward_hidden(params, tokens, cfg)
+def prefill_step(params, tokens, cfg: ModelConfig, memory=None):
+    """Full-prompt forward -> float32 logits (B,1,V) of the last position.
+    ``memory``: the image embeddings (vlm) or encoder output (audio)."""
+    x, _ = lm.forward_hidden(params, tokens, cfg, memory)
     return unembed(params["embed"], x[:, -1:, :], cfg)
 
 
 @dataclass
 class ServeEngine:
     """Static-batch decode loop over ``params`` (``models.lm`` layout) on
-    ``device`` (default the card; the parameters must already be there)."""
+    ``device`` (default the card; the parameters must already be there).
+    ``memory_len`` sizes the cross-attention caches of the vlm and audio
+    families (``lm.init_cache``); as in the reference, they hold zeros."""
     cfg: ModelConfig
     params: Any
     max_seq: int = 2048
+    memory_len: int = 0
     temperature: float = 0.0
     device: DeviceLike = None
     stats: Dict[str, float] = field(default_factory=dict, init=False)
@@ -124,7 +128,8 @@ class ServeEngine:
         prompts = np.asarray(prompts)
         B, P = prompts.shape
         t0 = time.perf_counter()
-        cache = lm.init_cache(self.cfg, B, self.max_seq, device=self.device)
+        cache = lm.init_cache(self.cfg, B, self.max_seq, self.memory_len,
+                              device=self.device)
         toks = torch.as_tensor(prompts, dtype=torch.int64).to(self.device)
         logits = None
         for t in range(P):
