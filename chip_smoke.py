@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of IDEALEM on one CUDA card: build, check, time.
 
-It drives both of the port's paths: the codec round trip with its indexed
-store, serving services, network front end and scale-out encode (phases
-3-17) and the LM serve path (phases 18-20).
+It drives the port's paths: the codec round trip with its indexed store,
+serving services, network front end and scale-out encode (phases 3-17),
+the LM serve path (phases 18-20) and the LM trainer (phase 21).
 
 Run from the root of a checkout, with no arguments:
 
@@ -222,9 +222,10 @@ Phases, each fatal on failure (no failure is caught):
               ``torch.Generator``, through ``ServeEngine.generate``: 8
               numpy-seeded prompts of 64 tokens, 16 greedy tokens, max_seq
               512 (``FAMILIES``): granite-moe-1b-a400m, rwkv6-3b,
-              zamba2-1.2b (38 layers, 6 shared-attention applications) and
-              whisper-tiny (4 + 4 encoder layers, cross caches of 1,500) at
-              full depth, mixtral-8x22b at 4 of 56 layers and
+              zamba2-1.2b (38 layers, 6 shared-attention applications),
+              whisper-tiny (4 + 4 encoder layers, cross caches of 1,500)
+              and gemma3-27b (62 layers, 52 local with rings of 512
+              positions) at full depth, mixtral-8x22b at 4 of 56 layers and
               llama-3.2-vision-90b at 10 of 100 (cross caches of 1,024):
               one card's 80 GB.  Checks, each fatal: the FULL config's
               parameter count (meta device) == the reference's; K4
@@ -241,7 +242,31 @@ Phases, each fatal on failure (no failure is caught):
               and peak GB, prefill and decode tokens/s, ms a decode step,
               device operations a step from a card-only trace of 8 steps,
               the host's ms to issue them, and each part's seconds.
-21. timing -- each kernel at a main-path shape against its plain version
+              ``[banded]``, on gemma3-27b's weights: one local layer's q, k,
+              v at B=1, S=8,192 (window = chunk = 1,024) through
+              ``_flash_banded`` (16 chunk pairs) and the unbanded chunk loop
+              (64), within ``BANDED_TOL``, both timed; the whole model's
+              forward at S=4,096 with every local layer on the banded path:
+              finite logits, seconds and tokens/s.
+21. train  -- granite-moe-1b-a400m at published widths: (a) 24 of 24
+              layers, 3 steps of ``make_train_step`` (8 x 128 tokens, 2
+              microbatches, lr 1e-3) on float32 masters, finite losses;
+              loss, grad_norm, ms a step, peak GB, and device operations a
+              step from a card-only trace of one step; (b) the SMOKE
+              config's first step in float32 on the card and on the CPU
+              from one state, TF32 off: loss, grad_norm, gradient
+              leaves (mu) and parameters within 1e-4 (relative); (c) ``python -m repro_torch.launch.train``'s
+              ``main`` with ``--gradcomp``, 5 steps, a checkpoint every 2,
+              a crash injected at step 3, at 2 of 24 layers (a checkpoint
+              holds ~16 B a parameter: ~2.5 GB against ~21 GB at full
+              depth), checkpoints in a temporary directory removed after:
+              the log restores from step 2 and ends at step 5 with finite
+              losses; one K1 launch a train step run (the gradient's
+              encode scan); K1's decisions on the first 4,096 blocks of
+              the flattened gradient == the plain scan on the card,
+              bitwise.  Prints the checkpoint's bytes (reckoned and on
+              disk), hit rate, wire ratio and seconds a compress.
+22. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
@@ -401,7 +426,7 @@ K4_TOL = 1e-5
 # and such differences pass through 40 residual layers into the logits.
 SERVE_LOGIT_TOL = 0.25
 # The families phase: the other decode families at published widths, a few
-# requests each.  (arch, layers run or None for the full depth, the FULL
+# requests each (gemma3-27b since its banded prefill was ported).  (arch, layers run or None for the full depth, the FULL
 # config's parameter count as the reference counts it).  Mixtral's experts
 # and the VLM's layers do not fit one card's 80 GB at full depth: 4 of 56
 # layers hold ~21 GB of bfloat16 experts, 10 of 100 (two super-blocks of
@@ -420,9 +445,39 @@ FAMILIES = (("granite-moe-1b-a400m", None, 1_334_628_352, "bfloat16"),
             ("zamba2-1.2b", None, 1_104_777_344, "float32"),
             ("whisper-tiny", None, 36_439_680, "bfloat16"),
             ("mixtral-8x22b", 4, 140_630_071_296, "float32"),
-            ("llama-3.2-vision-90b", 10, 87_666_794_496, "bfloat16"))
+            ("llama-3.2-vision-90b", 10, 87_666_794_496, "bfloat16"),
+            ("gemma3-27b", None, 19_840_778_496, "bfloat16"))
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN, FAMILY_MAX_SEQ = 8, 64, 16, 512
 FAMILY_FORCED, FAMILY_PROFILED = 16, 8
+# The banded check, on gemma3-27b's weights while [families] holds them:
+# one local layer's q, k, v at B=1, S=8,192 (window and chunk 1,024)
+# through _flash_banded and the unbanded chunk loop; both take float32
+# products of the same bfloat16 operands and round their outputs to
+# bfloat16, in another order of the online softmax, so they may land up to
+# a bfloat16 ulp apart at magnitudes below 2 (2**-7): the tolerance allows
+# two.  Then the whole model's forward at S=4,096, where every local layer
+# takes the banded path.
+BANDED_ARCH, BANDED_S, BANDED_FORWARD_S = "gemma3-27b", 8192, 4096
+BANDED_TOL = 2.0 ** -6
+# The train phase: granite-moe-1b-a400m (the reference launcher's default
+# architecture) at published widths.  (a) full depth, the launcher's
+# batch: TRAIN_STEPS steps of make_train_step on float32 masters (~21 GB
+# of parameters, gradients and moments).  (b) the first step of the SMOKE
+# config in float32 on the card and on the CPU from one state, TF32 off:
+# loss, grad_norm, each gradient leaf (AdamW's mu after one step) and each
+# parameter leaf within TRAIN_REL_TOL of the CPU's (a leaf's relative to
+# its largest magnitude).  (c) the launcher's fault-tolerant run
+# with --gradcomp at TRAIN_FT_LAYERS of 24 layers: each checkpoint holds
+# the whole state, ~16 B a parameter (params, moments, residual), ~21 GB
+# at full depth against ~2.5 GB at two layers; a crash at step
+# TRAIN_FT_CRASH restores the checkpoint of step 2.
+TRAIN_ARCH, TRAIN_PARAMS = "granite-moe-1b-a400m", 1_334_628_352
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_LR, TRAIN_STEPS = 8, 128, 2, 1e-3, 3
+TRAIN_REL_TOL = 1e-4
+TRAIN_FT_LAYERS, TRAIN_FT_STEPS, TRAIN_FT_EVERY, TRAIN_FT_CRASH = 2, 5, 2, 3
+# blocks of the flattened gradient whose K1 decisions are held against the
+# plain scan on the card
+TRAIN_PREFIX_BLOCKS = 4096
 
 T_START = time.perf_counter()
 
@@ -3496,6 +3551,9 @@ def phase_families(torch, dev, card):
         issue_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
+        banded = None
+        if arch == BANDED_ARCH:
+            banded = banded_check(torch, dev, card, cfg, params)
         del params, engine, cache, steps
         torch.cuda.empty_cache()
         t_prof = time.perf_counter()
@@ -3541,14 +3599,289 @@ def phase_families(torch, dev, card):
             "phase_s": {"param_count": t_count - t_start, "init": init_s,
                         "generate": t_gen - t_count - init_s,
                         "forced_and_forward": t_forced - t_gen,
-                        "profile": t_prof - t_forced,
+                        "profile_and_banded": t_prof - t_forced,
                         "float32": time.perf_counter() - t_prof},
         }
+        if banded is not None:
+            say(f"[banded] {json.dumps(banded)} [{card}]")
         say(f"[families] {json.dumps(res)} [{card}]")
         say(f"[profile] {arch} {FAMILY_PROFILED} decode steps "
             f"(B={FAMILY_BATCH}, position {FAMILY_FORCED}): "
             f"{json.dumps(prof)} [{card}]")
     return total
+
+
+def banded_check(torch, dev, card, cfg, params):
+    """The banded prefill on a model's weights (``BANDED_ARCH``): one local
+    layer's q, k, v (its projections and RoPE over seeded hidden states of
+    ``BANDED_S`` positions) through ``_flash_banded`` and the unbanded
+    chunk loop, equal within ``BANDED_TOL`` and timed; then the forward of
+    the whole model at ``BANDED_FORWARD_S`` tokens, every local layer on
+    the banded path."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import lm
+    from repro_torch.serve import prefill_step
+    kinds = lm.layer_kinds(cfg)
+    p = params["layers"][kinds.index("attn_local")]["attn"]
+    S, window, chunk = BANDED_S, cfg.local_window, cfg.attn_chunk
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    check(S % chunk == 0 and S // chunk > window // chunk + 1,
+          f"[banded] S={S} takes the banded path at window {window}, "
+          f"chunk {chunk}")
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((1, S, cfg.d_model), device=dev, generator=g).to(
+        cfg.dtype)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    q = attn.rope((x @ p["wq"]).reshape(1, S, h, hd), pos, cfg.rope_theta)
+    k = attn.rope((x @ p["wk"]).reshape(1, S, kvh, hd), pos, cfg.rope_theta)
+    v = (x @ p["wv"]).reshape(1, S, kvh, hd)
+    k, v = attn._repeat_kv(k, h), attn._repeat_kv(v, h)
+    del x
+
+    def banded():
+        return attn._flash_banded(q, k, v, pos, window=window, chunk=chunk)
+
+    def chunks():
+        return attn._flash_chunks(q, k, v, pos, pos, causal=True,
+                                  window=window, chunk=chunk)
+
+    got, want = banded(), chunks()
+    check(torch.equal(attn._flash(q, k, v, pos, pos, causal=True,
+                                  window=window, chunk=chunk), got),
+          "[banded] _flash dispatches to _flash_banded")
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= BANDED_TOL,
+          f"[banded] _flash_banded within {BANDED_TOL} of the unbanded "
+          f"chunk loop ({err})")
+    del got, want
+    nq = S // chunk
+    res = {"S": S, "window": window, "chunk": chunk, "heads": h, "hd": hd,
+           "dtype": str(cfg.dtype).split(".")[-1], "max_abs_err": err,
+           "tolerance": BANDED_TOL,
+           "chunk_pairs": {"banded": nq * (window // chunk + 1),
+                           "unbanded": nq * nq},
+           "banded_ms": cuda_ms(banded, reps=5),
+           "unbanded_ms": cuda_ms(chunks, reps=3)}
+    res["speedup"] = res["unbanded_ms"] / res["banded_ms"]
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    calls = []
+    real = attn._flash_banded
+
+    def count(*args, **kw):
+        calls.append(kw["window"])
+        return real(*args, **kw)
+
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, BANDED_FORWARD_S))).to(dev)
+    attn._flash_banded = count
+    try:
+        with torch.no_grad():
+            prefill_step(params, toks[:, :chunk], cfg)  # warm-up
+            torch.cuda.synchronize()
+            calls.clear()
+            t0 = time.perf_counter()
+            logits = prefill_step(params, toks, cfg)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+    finally:
+        attn._flash_banded = real
+    local = kinds.count("attn_local")
+    check(calls == [window] * local,
+          f"[banded] forward: {len(calls)} banded layers == {local}")
+    check(logits.shape == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"[banded] forward logits {tuple(logits.shape)} finite")
+    res["forward"] = {"S": BANDED_FORWARD_S, "layers": len(kinds),
+                      "banded_layers": local, "seconds": fwd_s,
+                      "tokens_per_s": BANDED_FORWARD_S / fwd_s}
+    return res
+
+
+def phase_train(torch, dev, card):
+    """The trainer at ``TRAIN_ARCH``'s published widths (21.): returns
+    K1's launches on its main path (the fault-tolerant run's gradient
+    compression)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.encoder import init_state
+    from repro_torch.kernels import encode_step as k1
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.layers import full_float32
+    from repro_torch.optim import gradcomp
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    full = get_config(TRAIN_ARCH)
+    n_params = full.param_count()
+    check(n_params == TRAIN_PARAMS, f"{TRAIN_ARCH} parameters {n_params}")
+
+    # (a) full depth, plain trainer steps on float32 masters
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(full, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    state_gb = (tree_bytes(state.params) + tree_bytes(state.opt)) / 1e9
+    step = make_train_step(full, lr=TRAIN_LR, microbatches=TRAIN_MICRO)
+    batches = launcher.build_batches(full, TRAIN_STEPS + 1, TRAIN_BATCH,
+                                     TRAIN_SEQ)
+    steps = []
+    for b in batches[:TRAIN_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        steps.append({"loss": loss, "grad_norm": gn,
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        check(np.isfinite(loss) and np.isfinite(gn),
+              f"[train] full depth: finite loss {loss}, grad_norm {gn}")
+    prof = device_profile(torch, lambda: step(state, batches[-1]), cpu=False)
+    peak = torch.cuda.max_memory_allocated()
+    del state, step, m
+    torch.cuda.empty_cache()
+    t_full = time.perf_counter()
+
+    # (b) the SMOKE config's first step on the card and on the CPU
+    cfg = get_config(TRAIN_ARCH, smoke=True).replace(dtype=torch.float32)
+    host = init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(cfg, lr=TRAIN_LR, microbatches=TRAIN_MICRO)
+    b = launcher.build_batches(cfg, 1, TRAIN_BATCH, TRAIN_SEQ)[0]
+    with full_float32():
+        on_card, m_card = step(tree_map(lambda t: t.to(dev), host), b)
+    on_host, m_host = step(host, b)
+
+    def rel(key):
+        return abs(float(m_card[key]) - float(m_host[key])) \
+            / abs(float(m_host[key]))
+
+    def leaf_rel(card_tree, host_tree):
+        """Each leaf's largest difference relative to its largest
+        magnitude, the largest over the leaves."""
+        return max(
+            float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            for a, b in zip(tree_leaves(card_tree), tree_leaves(host_tree)))
+
+    loss_rel, gnorm_rel = rel("loss"), rel("grad_norm")
+    # after one step mu = (1 - b1) * the clipped gradient, leaf by leaf: it
+    # holds the backward to its values; the parameters move by about
+    # lr * sign(gradient) and hold it only to its signs
+    grad_rel = leaf_rel(on_card.opt.mu, on_host.opt.mu)
+    param_rel = leaf_rel(on_card.params, on_host.params)
+    check(max(loss_rel, gnorm_rel, grad_rel, param_rel) <= TRAIN_REL_TOL,
+          f"[train] card vs CPU step: loss {loss_rel}, grad_norm "
+          f"{gnorm_rel}, gradients (mu) {grad_rel}, parameters {param_rel} "
+          f"within {TRAIN_REL_TOL} (relative)")
+    del on_card, on_host, host
+    t_parity = time.perf_counter()
+
+    # (c) the launcher's fault-tolerant run with --gradcomp, depth cut
+    cut = full.replace(num_layers=TRAIN_FT_LAYERS)
+    reckoned = 16 * cut.param_count()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    compress = {"seconds": [], "metrics": []}
+    real_compress, real_config = gradcomp._compress_flat, launcher.get_config
+
+    def timed(flat, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_compress(flat, **kw)
+        torch.cuda.synchronize()
+        compress["seconds"].append(time.perf_counter() - t0)
+        compress["metrics"].append({k: float(v) for k, v in out[1].items()})
+        if "flat" not in compress:  # the first compress's prefix
+            nb = TRAIN_PREFIX_BLOCKS
+            compress.update(flat=flat[:nb * kw["block"]].clone(), kw=kw,
+                            blocks=flat.numel() // kw["block"],
+                            decisions=tuple(d[:nb].clone() for d in out[2]))
+        return out
+
+    gradcomp._compress_flat = timed
+    launcher.get_config = lambda arch, smoke=False: cut
+    try:
+        k1.launches = 0
+        trainer = launcher.main([
+            "--arch", TRAIN_ARCH, "--steps", str(TRAIN_FT_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--microbatches", str(TRAIN_MICRO), "--lr", str(TRAIN_LR),
+            "--ckpt-every", str(TRAIN_FT_EVERY), "--gradcomp",
+            "--inject-crash", str(TRAIN_FT_CRASH), "--ckpt-dir", tmp,
+            "--device", str(dev)])
+        launches = k1.launches
+        ckpt_dir = Path(tmp) / f"step_{TRAIN_FT_EVERY:08d}"
+        on_disk = sum(f.stat().st_size for f in ckpt_dir.iterdir())
+    finally:
+        gradcomp._compress_flat, launcher.get_config = (real_compress,
+                                                         real_config)
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = [e for e in trainer.log if "loss" in e]
+    events = [e for e in trainer.log if "event" in e]
+    check(events == [{"step": TRAIN_FT_CRASH, "event": "restore",
+                      "resumed_from": TRAIN_FT_EVERY,
+                      "cause": f"node failure at step {TRAIN_FT_CRASH}"}],
+          f"[train] fault-tolerant run: restore from step "
+          f"{TRAIN_FT_EVERY} ({events})")
+    check(losses[-1]["step"] == TRAIN_FT_STEPS - 1
+          and int(trainer.state.opt.step) == TRAIN_FT_STEPS
+          and all(np.isfinite(e["loss"]) for e in losses),
+          f"[train] fault-tolerant run ends at step {TRAIN_FT_STEPS} with "
+          f"finite losses")
+    check(launches == len(losses) == len(compress["seconds"]),
+          f"[train] K1 launches {launches} == train steps run "
+          f"{len(losses)} (one compress each)")
+    # K1's first decisions against the plain scan on the card
+    flat, kw = compress["flat"], compress["kw"]
+    xs = torch.sort(flat.reshape(1, TRAIN_PREFIX_BLOCKS, kw["block"]),
+                    dim=-1).values
+    (ph, ps, _), _ = k1.encode_scan_torch(
+        xs, torch.ones((1, TRAIN_PREFIX_BLOCKS), dtype=torch.bool,
+                       device=dev),
+        init_state(kw["num_dict"], kw["block"], channels=1, device=dev),
+        d_crit=kw["d_crit"], rel_tol=kw["rel_tol"])
+    h, sl = compress["decisions"]
+    check(torch.equal(h, ph[0]) and torch.equal(sl, ps[0]),
+          f"[train] K1 == plain scan on the first {TRAIN_PREFIX_BLOCKS} "
+          f"blocks of the flattened gradient")
+    del trainer
+    torch.cuda.empty_cache()
+    res = {
+        "arch": TRAIN_ARCH, "params": n_params,
+        "full_depth": {"layers": full.num_layers, "batch": TRAIN_BATCH,
+                       "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+                       "lr": TRAIN_LR, "state_GB": state_gb,
+                       "peak_GB": peak / 1e9, "steps": steps,
+                       "device_ops_per_step": prof["device_events"],
+                       "profiled_step_wall_s": prof["wall_s"],
+                       "busy_share": prof["busy_share"]},
+        "card_vs_cpu": {"config": "SMOKE float32, TF32 off",
+                        "loss_rel_err": loss_rel,
+                        "grad_norm_rel_err": gnorm_rel,
+                        "grad_rel_err": grad_rel,
+                        "param_rel_err": param_rel,
+                        "tolerance": TRAIN_REL_TOL},
+        "fault_tolerant": {
+            "layers": TRAIN_FT_LAYERS, "steps": TRAIN_FT_STEPS,
+            "ckpt_every": TRAIN_FT_EVERY, "crash_at": TRAIN_FT_CRASH,
+            "losses": [e["loss"] for e in losses], "events": events,
+            "ckpt_bytes_reckoned": reckoned, "ckpt_bytes_on_disk": on_disk,
+            "k1_launches": launches,
+            "gradcomp": {"blocks": compress["blocks"],
+                         "hit_rate": [m["hit_rate"]
+                                      for m in compress["metrics"]],
+                         "wire_ratio": [m["wire_ratio"]
+                                        for m in compress["metrics"]],
+                         "seconds": compress["seconds"]},
+            "k1_prefix_blocks": TRAIN_PREFIX_BLOCKS},
+        "phase_s": {"full_depth": t_full - t_start,
+                    "card_vs_cpu": t_parity - t_full,
+                    "fault_tolerant": time.perf_counter() - t_parity},
+    }
+    say(f"[train] {json.dumps(res)} [{card}]")
+    say(f"[profile] train step {TRAIN_ARCH} full depth (B={TRAIN_BATCH}, "
+        f"S={TRAIN_SEQ}): {json.dumps(prof)} [{card}]")
+    return launches
 
 
 def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
@@ -3595,7 +3928,7 @@ def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
 
 
 def phase_timing(torch, dev, card, first_chunks, k2_reads):
-    """Each kernel at its main-path shapes (21.): returns the timings that
+    """Each kernel at its main-path shapes (22.): returns the timings that
     the kernels JSON line reports, by kernel.  ``k2_reads`` holds K2's
     operands on the store's ANG_delta reads."""
     from repro_torch.core.decode import _pow2
@@ -3704,6 +4037,7 @@ def main() -> int:
     phase_k4(torch, dev)
     launches["flash_decode"] = phase_serve(torch, dev, card)
     launches["flash_decode"] += phase_families(torch, dev, card)
+    launches["encode_step"] += phase_train(torch, dev, card)
     timed = phase_timing(torch, dev, card, first_chunks, k2_reads)
 
     def entry(name, source, replaces):

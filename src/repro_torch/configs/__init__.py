@@ -1,16 +1,12 @@
-"""Architecture registry of the port: nine of the reference's ten.
+"""Architecture registry of the port: the reference's ten architectures.
 
 Each module defines ``FULL`` (the published configuration, as in the
 reference package's ``repro/configs``) and ``SMOKE`` (a reduced
-same-family configuration for CPU tests).  gemma3-27b, whose prefill takes
-the banded sliding-window path, is not ported yet: :func:`get_config`
-raises for it.
+same-family configuration for CPU tests).
 """
 from __future__ import annotations
 
 import importlib
-
-from ..models.common import UNPORTED
 
 __all__ = ["ARCHS", "ALIASES", "get_config"]
 
@@ -18,6 +14,7 @@ ARCHS = [
     "granite_moe_1b_a400m",
     "mixtral_8x22b",
     "granite_3_8b",
+    "gemma3_27b",
     "stablelm_12b",
     "glm4_9b",
     "zamba2_1_2b",
@@ -35,12 +32,11 @@ ALIASES.update({
 
 
 def get_config(arch: str, smoke: bool = False):
-    """``FULL`` (or ``SMOKE``) of a ported architecture, by module name or
-    dash alias; ``NotImplementedError`` for any other."""
+    """``FULL`` (or ``SMOKE``) of an architecture, by module name or dash
+    alias; ``ValueError`` for a name the registry does not hold."""
     mod_name = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if mod_name not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {arch!r} is not ported (ported: "
-            f"{', '.join(ALIASES)}): see {UNPORTED}")
+        raise ValueError(f"unknown architecture {arch!r} (known: "
+                         f"{', '.join(ALIASES)})")
     mod = importlib.import_module(f"{__name__}.{mod_name}")
     return mod.SMOKE if smoke else mod.FULL

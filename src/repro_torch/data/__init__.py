@@ -1,2 +1,3 @@
-"""Synthetic telemetry for the paper's traffic (``synthetic``) and the
-compressed ingestion path (``pipeline``)."""
+"""Synthetic data (``synthetic``: the paper's telemetry, EEG-like noise,
+token streams) and the host pipeline (``pipeline``: a prefetching loader,
+the compressed ingestion path)."""

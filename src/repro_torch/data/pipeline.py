@@ -1,20 +1,52 @@
-"""IDEALEM-compressed telemetry ingestion: compress a fleet's channels and
-read them back.
+"""Host data pipeline: a prefetching loader and the IDEALEM-compressed
+telemetry ingestion path (compress a fleet's channels, read them back).
 
-The reference package's ``data/pipeline.py`` also holds a prefetching
-loader (``Prefetcher``) and mesh placement (``place_on_mesh``); they belong
-to the training substrate and are not ported yet (ROADMAP Queue 1 items
-12.4 and 12.5).
+The reference package's ``data/pipeline.py`` also places batches on a
+device mesh (``place_on_mesh``); that waits with the rest of sharding
+(``models.common.UNPORTED``).  A ``Prefetcher``'s ``place`` callable can
+move each batch to a device.
 """
 from __future__ import annotations
 
-from typing import Iterator
+import queue
+import threading
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
 from ..core import IdealemCodec
 
-__all__ = ["compress_channels", "compressed_telemetry_reader"]
+__all__ = ["Prefetcher", "compress_channels", "compressed_telemetry_reader"]
+
+
+class Prefetcher:
+    """Iterate ``it`` on a background thread, keeping up to ``prefetch``
+    items (each passed through ``place``) ready, in order."""
+
+    def __init__(self, it: Iterator, prefetch: int = 2,
+                 place: Optional[Callable] = None):
+        self._it = it
+        self._place = place or (lambda x: x)
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._done = object()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            for item in self._it:
+                self._q.put(self._place(item))
+        finally:
+            self._q.put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            raise StopIteration
+        return item
 
 
 def compressed_telemetry_reader(blobs, codec: IdealemCodec

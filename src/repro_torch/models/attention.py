@@ -1,5 +1,6 @@
-"""Attention of the LM serve path: RoPE, GQA, the chunked online-softmax
-forward, and single-token decode against a ring KV cache through K4.
+"""Attention of the LM: RoPE, GQA, the chunked online-softmax forward
+(training and prefill), and single-token decode against a ring KV cache
+through K4.
 
 The counterpart of ``repro/models/attention.py``.  :func:`decode_attention`
 is the serve hot spot: its core (pre-scaled float32 query against the
@@ -7,17 +8,17 @@ cache, masked to -1e30 by ``valid``, softmax, weighted V) is the TPU
 kernel ``flash_decode_pallas``'s function, and on the card it launches
 the port's K4 (``repro_torch.kernels.flash_decode``) without a repeated
 copy of the cache.  The forward path (:func:`attention`, :func:`_flash`)
-is plain PyTorch, as the reference's is plain jnp.
+is plain PyTorch, as the reference's is plain jnp.  Sliding-window causal
+self-attention whose sequence spans more chunks than its band takes
+:func:`_flash_banded` (the reference's banded prefill): each q chunk
+visits only the kv chunks of its band, so the work scales with
+S * window instead of S * T.
 
-Differences from the reference, by design:
-
-* the cache slot of the new token is written in place, where the
-  reference returns a new cache from ``dynamic_update_slice``; at full
-  width a functional update would copy the whole 2.68 GB cache each step.
-  ``KVCache.length`` is a Python int (every sequence of a batch is at the
-  same position, as in the reference).
-* ``_flash_banded`` (the reference's banded sliding-window prefill) is not
-  ported; a forward that would take it raises ``NotImplementedError``.
+Difference from the reference, by design: the cache slot of the new token
+is written in place, where the reference returns a new cache from
+``dynamic_update_slice``; at full width a functional update would copy
+the whole 2.68 GB cache each step.  ``KVCache.length`` is a Python int
+(every sequence of a batch is at the same position, as in the reference).
 """
 from __future__ import annotations
 
@@ -84,19 +85,28 @@ def _flash(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
            chunk: int, kv_len=None):
     """q: (B,S,H,hd), k/v: (B,T,H,hd) (kv already repeated to H heads).
 
-    Returns (B,S,H,hd): the online softmax over kv chunks of ``chunk``
-    positions, products of compute-dtype operands accumulated in float32
-    (the reference's ``preferred_element_type``).  Masks: causal, sliding
-    window, ``kv_len`` for padded caches."""
-    B, S, H, hd = q.shape
-    T = k.shape[1]
+    Returns (B,S,H,hd).  Sliding-window causal self-attention whose q
+    spans more chunks than its band takes :func:`_flash_banded`, under the
+    reference's condition (``attention.py:64-67``); everything else
+    :func:`_flash_chunks`."""
+    S, T = q.shape[1], k.shape[1]
     chunk = min(chunk, T)
     if (window is not None and causal and S == T and kv_len is None
             and S % chunk == 0 and S // chunk > window // chunk + 1):
-        raise NotImplementedError(
-            f"banded sliding-window prefill (S={S}, window={window}, "
-            f"chunk={chunk}) is not ported: see ROADMAP.md Queue 1 item "
-            f"12.3 (_flash_banded)")
+        return _flash_banded(q, k, v, q_pos, window=window, chunk=chunk)
+    return _flash_chunks(q, k, v, q_pos, kv_pos, causal=causal,
+                         window=window, chunk=chunk, kv_len=kv_len)
+
+
+def _flash_chunks(q, k, v, q_pos, kv_pos, *, causal: bool,
+                  window: Optional[int], chunk: int, kv_len=None):
+    """The online softmax of every q position over all kv chunks of
+    ``chunk`` positions, products of compute-dtype operands accumulated in
+    float32 (the reference's ``preferred_element_type``).  Masks: causal,
+    sliding window, ``kv_len`` for padded caches."""
+    B, S, H, hd = q.shape
+    T = k.shape[1]
+    chunk = min(chunk, T)
     pad = (-T) % chunk
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -104,9 +114,7 @@ def _flash(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
         kv_pos = torch.nn.functional.pad(
             kv_pos, (0, pad), value=np.iinfo(np.int32).max // 2)
     nchunk = k.shape[1] // chunk
-    # the scale rounded to the compute dtype, as the reference's
-    scale = float(torch.tensor(1.0 / np.sqrt(hd), dtype=q.dtype))
-    qs = (q * scale).float()
+    qs = _scaled(q)
 
     o = torch.zeros((B, H, S, hd), dtype=torch.float32, device=q.device)
     m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=q.device)
@@ -132,6 +140,53 @@ def _flash(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
         m = m_new
     o = o / torch.clamp(l, min=1e-30)[..., None]
     return o.transpose(1, 2).to(q.dtype)  # (B,S,H,hd)
+
+
+def _scaled(q):
+    """``q * 1/sqrt(hd)`` in q's dtype (the scale rounded to it, as the
+    reference's), as float32 operands."""
+    scale = float(torch.tensor(1.0 / np.sqrt(q.shape[-1]), dtype=q.dtype))
+    return (q * scale).float()
+
+
+def _flash_banded(q, k, v, q_pos, *, window: int, chunk: int):
+    """Sliding-window causal self-attention over q chunks: q chunk ``qi``
+    visits kv chunks ``qi, qi-1, ..., qi-band+1`` in that order (band =
+    ``window // chunk + 1``), as the reference's ``_flash_banded``
+    (``attention.py:116-158``) does; a chunk index below 0 visits chunk 0
+    wholly masked.  The q chunks go side by side, so the band's ``band``
+    steps each cover every chunk; the order of the online-softmax
+    accumulation within a q chunk is the reference's."""
+    B, S, H, hd = q.shape
+    nq = S // chunk
+    band = window // chunk + 1
+    qc = _scaled(q).reshape(B, nq, chunk, H, hd)
+    kc = k.reshape(B, nq, chunk, H, hd)
+    vc = v.reshape(B, nq, chunk, H, hd)
+    pc = q_pos.reshape(nq, chunk)
+    qi = torch.arange(nq, device=q.device)
+    o = torch.zeros((B, nq, H, chunk, hd), dtype=torch.float32,
+                    device=q.device)
+    m = torch.full((B, nq, H, chunk), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, nq, H, chunk), dtype=torch.float32, device=q.device)
+    for b in range(band):
+        j = torch.clamp(qi - b, min=0)
+        kb, vb, pb = kc[:, j], vc[:, j], pc[j]
+        s = torch.einsum("bnshd,bnthd->bnhst", qc, kb.float())
+        d = pc[:, :, None] - pb[:, None, :]  # (nq, chunk, chunk)
+        mask = (d >= 0) & (d < window) & (qi - b >= 0)[:, None, None]
+        s = torch.where(mask[None, :, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bnhst,bnthd->bnhsd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    o = o / torch.clamp(l, min=1e-30)[..., None]
+    # (B, nq, H, chunk, hd) -> (B, S, H, hd)
+    return o.transpose(2, 3).reshape(B, S, H, hd).to(q.dtype)
 
 
 def _repeat_kv(x, h: int):

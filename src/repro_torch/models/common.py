@@ -1,11 +1,11 @@
-"""Model configuration and parameter initialization of the LM serve path.
+"""Model configuration and parameter initialization of the LM.
 
 The counterpart of ``repro/models/common.py``: the same :class:`ModelConfig`
 fields and defaults, with torch dtypes.  The reference's logical-axis
 sharding rules (``logical``, ``set_sharding_rules``), its expert-parallel
-switch (``moe_expert_parallel``) and its training fields (``remat``,
-``train_microbatches``) have no counterpart yet: they belong with training
-and sharding (ROADMAP Queue 1 items 12.4 and 12.5).
+switch (``moe_expert_parallel``), ``train_microbatches`` (read only by its
+dryrun) and ``scan_layers`` have no counterpart yet: they belong with
+dryrun and sharding (:data:`UNPORTED`).
 """
 from __future__ import annotations
 
@@ -18,17 +18,14 @@ import torch
 
 __all__ = ["ModelConfig", "dense_init", "UNPORTED"]
 
-#: Where what the port does not serve yet stands in ROADMAP.md: banded
-#: prefill (gemma3-27b), training, and dryrun and sharding.
-UNPORTED = "ROADMAP.md Queue 1 items 12.3 (banded prefill, gemma3-27b), " \
-    "12.4 (training) and 12.5 (dryrun, sharding)"
+#: Where what the port does not have yet stands in ROADMAP.md.
+UNPORTED = "ROADMAP.md Queue 1 item 12.5 (dryrun, sharding)"
 
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """The reference's fields that the serve path reads, letter for letter
-    (``repro/models/common.py:18-76``); the training fields come with
-    training."""
+    """The reference's fields, letter for letter
+    (``repro/models/common.py:18-76``), but for the sharding ones."""
     name: str = "model"
     family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio
     num_layers: int = 2
@@ -65,6 +62,8 @@ class ModelConfig:
     act: str = "swiglu"  # swiglu | gelu
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
+    remat: bool = True
+    remat_policy: str = "full"  # full | dots (save unbatched matmul outputs)
     rwkv_chunk: int = 64
     ssm_chunk: int = 128
     attn_chunk: int = 1024
@@ -88,20 +87,10 @@ class ModelConfig:
         """Total parameter count N, counted from the shapes of
         :func:`repro_torch.models.lm.init_params` on the meta device (no
         memory is allocated)."""
+        from ..tree import tree_leaves
         from .lm import init_params  # lazy; avoids a cycle
         params = init_params(self, device="meta")
-        return sum(math.prod(t.shape) for t in _leaves(params))
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+        return sum(math.prod(t.shape) for t in tree_leaves(params))
 
 
 def dense_init(shape, in_axis: int = 0, dtype=torch.float32,

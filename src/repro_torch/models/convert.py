@@ -14,7 +14,10 @@ Dtypes: the leaves the reference reads in float32 keep
 norms), the MoE router, the SSM's ``A_log``, ``D``, ``dt_bias`` and
 ``conv_w`` (the decode reads them in float32) and RWKV's ``w0`` and
 ``u``.  Every other leaf is cast once to ``cfg.dtype``, the dtype the
-reference casts it to before every product.
+reference casts it to before every product.  ``masters=True`` keeps every
+leaf in ``cfg.param_dtype`` instead: the trainer's layout, in which the
+forward's cast at each use is the reference's and gradients reach the
+float32 masters.
 """
 from __future__ import annotations
 
@@ -31,31 +34,42 @@ __all__ = ["params_from_jax"]
 
 #: Leaves kept in ``cfg.param_dtype`` (by name, at any depth).
 _FLOAT32_LEAVES = frozenset(
-    {"scale", "router", "A_log", "D", "dt_bias", "conv_w", "w0", "u"})
+    {"table", "unembed", "scale", "router", "A_log", "D", "dt_bias",
+     "conv_w", "w0", "u"})
 
 
 def _tensor(a, dtype, dev):
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dtype)
 
 
-def _convert(tree, r: Optional[int], cfg: ModelConfig, dev):
-    """A nested dict of arrays (entry ``r`` of a stacked one) in the port's
-    dtypes."""
+def _cast(tree, r: Optional[int], dtype_of, dev):
+    """A nested dict of arrays (entry ``r`` of a stacked one), each leaf in
+    ``dtype_of(name)``."""
     out = {}
     for name, a in tree.items():
         if isinstance(a, dict):
-            out[name] = _convert(a, r, cfg, dev)
+            out[name] = _cast(a, r, dtype_of, dev)
         else:
-            dt = cfg.param_dtype if name in _FLOAT32_LEAVES else cfg.dtype
-            out[name] = _tensor(a if r is None else a[r], dt, dev)
+            out[name] = _tensor(a if r is None else a[r], dtype_of(name), dev)
     return out
 
 
-def params_from_jax(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
-    """The port's parameters (``models.lm.init_params`` layout) on
-    ``device`` (default the card) from the reference's parameter tree of
-    numpy arrays for the same ``cfg``."""
-    dev = resolve_device(device)
+def _dtypes(cfg: ModelConfig, masters: bool = False):
+    """The dtype of a leaf by name: ``cfg.param_dtype`` for the float32
+    leaves (all of them with ``masters``), else ``cfg.dtype``."""
+    def dtype_of(name):
+        return cfg.param_dtype if masters or name in _FLOAT32_LEAVES \
+            else cfg.dtype
+    return dtype_of
+
+
+def _convert(tree, r: Optional[int], cfg: ModelConfig, dev):
+    """:func:`_cast` in the serve layout's dtypes."""
+    return _cast(tree, r, _dtypes(cfg), dev)
+
+
+def _split(tree, cfg: ModelConfig, dev, dtype_of) -> Dict[str, Any]:
+    """The port's per-layer layout of a reference-structured tree."""
     plan = stage_plan(cfg)
     if len(tree["stages"]) != len(plan):
         raise ValueError(f"{len(tree['stages'])} stages in the tree, "
@@ -65,19 +79,27 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> Dict[str, Any]:
         for r in range(reps):
             for i, kind in enumerate(pattern):
                 layers.append({} if kind == "shared_attn"
-                              else _convert(stage[f"p{i}"], r, cfg, dev))
+                              else _cast(stage[f"p{i}"], r, dtype_of, dev))
     out = {
-        "embed": {k: _tensor(a, cfg.param_dtype, dev)
-                  for k, a in tree["embed"].items()},
-        "final_norm": _convert(tree["final_norm"], None, cfg, dev),
+        "embed": _cast(tree["embed"], None, dtype_of, dev),
+        "final_norm": _cast(tree["final_norm"], None, dtype_of, dev),
         "layers": layers,
     }
     if "shared" in tree:
-        out["shared"] = _convert(tree["shared"], None, cfg, dev)
+        out["shared"] = _cast(tree["shared"], None, dtype_of, dev)
     if "encoder" in tree:
         stage = tree["encoder"]["stage"]["p0"]
         out["encoder"] = {
-            "layers": [_convert(stage, r, cfg, dev)
+            "layers": [_cast(stage, r, dtype_of, dev)
                        for r in range(cfg.encoder_layers)],
-            "norm": _convert(tree["encoder"]["norm"], None, cfg, dev)}
+            "norm": _cast(tree["encoder"]["norm"], None, dtype_of, dev)}
     return out
+
+
+def params_from_jax(tree, cfg: ModelConfig, device=None,
+                    masters: bool = False) -> Dict[str, Any]:
+    """The port's parameters (``models.lm.init_params`` layout) on
+    ``device`` (default the card) from the reference's parameter tree of
+    numpy arrays for the same ``cfg``; ``masters=True``: every leaf in
+    ``cfg.param_dtype`` (the trainer's layout)."""
+    return _split(tree, cfg, resolve_device(device), _dtypes(cfg, masters))

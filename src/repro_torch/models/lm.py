@@ -1,4 +1,5 @@
-"""Model assembly of the LM serve path: heterogeneous layer stacks.
+"""Model assembly of the LM: heterogeneous layer stacks, the training loss
+and the decode step.
 
 The counterpart of ``repro/models/lm.py``.  A config maps to a *stage
 plan*, a list of (pattern, repeats) where a pattern is a tuple of layer
@@ -8,6 +9,10 @@ each stage's parameters and runs them with ``lax.scan``; here the
 parameters are a list with one dict per layer, in the order the scan
 visits them, and the scan is a Python loop.  ``models.convert.
 params_from_jax`` splits the reference's stacked layout into this one.
+Where the reference wraps each scanned repeat of a stage's pattern in
+``jax.checkpoint`` (``cfg.remat``), the forward wraps each repeat (one
+super-block of :func:`layer_kinds`) in ``torch.utils.checkpoint`` while
+gradients are being taken.
 
 Layer kinds:
   attn          self-attention + MLP (window = cfg.sliding_window if set)
@@ -31,12 +36,15 @@ cross caches: they hold zeros of ``memory_len`` positions.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..tree import tree_leaves
 from .attention import (BACKENDS, KVCache, _repeat_kv, attention,
                         cross_attention, decode_attention, init_attention,
                         init_kv_cache, ring_valid, rope_angles)
@@ -50,8 +58,11 @@ from .rwkv import (channel_mix_decode, channel_mix_forward, init_channel_mix,
 from .ssm import init_ssm, init_ssm_cache, ssm_decode, ssm_forward
 
 __all__ = ["stage_plan", "layer_kinds", "init_params", "forward_hidden",
-           "encode_frames", "DecodeCache", "init_cache", "decode_step",
-           "SELF_ATTN_KINDS"]
+           "encode_frames", "lm_loss", "LOSS_CHUNK", "DecodeCache",
+           "init_cache", "decode_step", "SELF_ATTN_KINDS"]
+
+#: Positions a chunk of the loss: (B, LOSS_CHUNK, V) float32 logits at once.
+LOSS_CHUNK = 1024
 
 #: Kinds whose decode is one self-attention (one K4 launch) a step.
 SELF_ATTN_KINDS = ("attn", "attn_local", "attn_global", "moe_attn",
@@ -144,13 +155,21 @@ def _init_layer(kind: str, cfg: ModelConfig, **kw):
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device=None) -> Dict[str, Any]:
+                device=None, masters: bool = False) -> Dict[str, Any]:
     """Random parameters drawn from ``generator`` on ``device`` (default
     the card): ``{"embed", "final_norm", "layers": [one dict per layer]}``,
     with ``"shared"`` (zamba2's attention block, stored once) and
     ``"encoder": {"layers", "norm"}`` (whisper) where the family has them.
-    ``device="meta"`` gives the shapes without memory."""
+    ``device="meta"`` gives the shapes without memory.
+
+    The serve layout holds the projections in ``cfg.dtype``;
+    ``masters=True`` holds every leaf in ``cfg.param_dtype`` (the trainer's
+    float32 masters, as the reference's parameters are), the same draws
+    before the cast.  The forward casts each leaf to the compute dtype at
+    its use, so both layouts give the same numbers."""
     dev = resolve_device(device)
+    if masters:
+        cfg = cfg.replace(dtype=cfg.param_dtype)
     kw = dict(generator=generator, device=dev)
     params: Dict[str, Any] = {
         "embed": init_embed(cfg, **kw),
@@ -211,6 +230,67 @@ def _apply_layer(kind, p, x, cfg, memory):
     return x, aux
 
 
+def _apply_block(kinds, layers, shared, x, aux, cfg, memory):
+    """One repeat of a stage's pattern: the layers of ``kinds`` in turn,
+    their aux losses added to ``aux``."""
+    for kind, p in zip(kinds, layers):
+        x, a = _apply_layer(kind, shared if kind == "shared_attn" else p, x,
+                            cfg, memory)
+        aux = aux + a
+    return x, aux
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``, the
+    reference's ``dots_with_no_batch_dims_saveable``: keep the outputs of
+    products without a batch axis (``mm``, ``addmm``: the projections),
+    recompute the rest (``bmm``: attention scores, experts)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    dots = (aten.mm.default, aten.addmm.default)
+    return (CheckpointPolicy.MUST_SAVE if op in dots
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(save_dots: bool, fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``): its activations are recomputed in the backward;
+    ``save_dots`` keeps the unbatched matmul outputs
+    (``remat_policy="dots"``)."""
+    from torch.utils import checkpoint as ckpt
+    context_fn = ckpt.noop_context_fn
+    if save_dots:
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           context_fn=context_fn)
+
+
+def _taking_grads(cfg: ModelConfig, x, tree) -> bool:
+    """Whether a block is rematerialised: ``cfg.remat`` is set and a
+    gradient flows through it (``x`` or one of its leaves needs one)."""
+    return cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(tree)
+                               if isinstance(t, torch.Tensor)))
+
+
+def _run_stage(kinds, reps, layers, shared, x, cfg, memory):
+    """A stage of the plan: ``reps`` repeats of ``kinds`` over ``layers``
+    (``reps * len(kinds)`` entries), each repeat rematerialised while
+    gradients are taken.  Returns (x, the stage's aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    k = len(kinds)
+    for r in range(reps):
+        block = layers[r * k:(r + 1) * k]
+        args = (kinds, block, shared, x, aux, cfg, memory)
+        if _taking_grads(cfg, x, (block, shared)):
+            x, aux = _remat(cfg.remat_policy == "dots", _apply_block,
+                            *args)
+        else:
+            x, aux = _apply_block(*args)
+    return x, aux
+
+
 def forward_hidden(params, tokens, cfg: ModelConfig, memory=None):
     """tokens (B,S) -> hidden (B,S,d) after the final norm, and the summed
     MoE aux loss (0 for the other families).  ``memory`` (B,M,d): the image
@@ -219,10 +299,13 @@ def forward_hidden(params, tokens, cfg: ModelConfig, memory=None):
     if cfg.family == "audio" and memory is None:
         raise ValueError("audio model needs encoder memory")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        x, aux = _apply_layer(kind, _layer_params(params, kind, p), x, cfg,
-                              memory)
+    start = 0
+    for kinds, reps in stage_plan(cfg):
+        n = reps * len(kinds)
+        x, aux = _run_stage(kinds, reps, params["layers"][start:start + n],
+                            params.get("shared"), x, cfg, memory)
         aux_total = aux_total + aux
+        start += n
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return x, aux_total
 
@@ -230,9 +313,56 @@ def forward_hidden(params, tokens, cfg: ModelConfig, memory=None):
 def encode_frames(params, frames, cfg: ModelConfig):
     """The whisper encoder over stubbed frame embeddings (B,F,d)."""
     x = frames.to(cfg.dtype)
-    for p in params["encoder"]["layers"]:
-        x, _ = _apply_layer("enc_attn", p, x, cfg, None)
+    layers = params["encoder"]["layers"]
+    x, _ = _run_stage(("enc_attn",), len(layers), layers, None, x, cfg,
+                      None)
     return rmsnorm(params["encoder"]["norm"], x, cfg.norm_eps)
+
+
+def _chunk_loss(embed_params, x, labels, cfg: ModelConfig):
+    """Summed next-token NLL of one chunk and its count of valid labels
+    (labels < 0 are masked), from float32 logits."""
+    logits = unembed(embed_params, x, cfg)  # (B, C, V) float32
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0)[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def lm_loss(params, batch, cfg: ModelConfig):
+    """Next-token cross-entropy (float32 scalar), chunked over
+    :data:`LOSS_CHUNK` positions so the (S, V) logits never exist at once
+    (vocab up to 262k); each chunk is rematerialised under ``cfg.remat``.
+    ``batch``: ``tokens`` and ``labels`` (B, S) int64 tensors (labels -1
+    are masked), ``memory`` (vlm) or ``frames`` (audio, run through
+    :func:`encode_frames`).  A MoE adds ``0.01 *`` its aux loss, as the
+    reference does (``repro/models/lm.py:229-266``)."""
+    memory = batch.get("memory")
+    if cfg.family == "audio":
+        memory = encode_frames(params, batch["frames"], cfg)
+    x, aux = forward_hidden(params, batch["tokens"], cfg, memory)
+    labels = batch["labels"]
+    S = x.shape[1]
+    C = min(LOSS_CHUNK, S)
+    pad = (-S) % C
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(x.shape[1] // C):
+        args = (params["embed"], x[:, c * C:(c + 1) * C],
+                labels[:, c * C:(c + 1) * C], cfg)
+        if _taking_grads(cfg, x, params["embed"]):
+            nll, n = _remat(False, _chunk_loss, *args)
+        else:
+            nll, n = _chunk_loss(*args)
+        tot, cnt = tot + nll, cnt + n
+    loss = tot / torch.clamp(cnt, min=1.0)
+    if cfg.num_experts:
+        loss = loss + 0.01 * aux
+    return loss
 
 
 # ------------------------------------------------------------------ serving

@@ -230,15 +230,19 @@ def test_param_count_matches_jax():
 
 
 def test_unported_paths_raise():
-    """What is still unported raises, naming its ROADMAP item: gemma3-27b
-    and the banded prefill it needs (item 12.3)."""
-    with pytest.raises(NotImplementedError, match="item.* 12.3"):
-        get_config("gemma3-27b")
+    """What the port does not have raises: an architecture the registry
+    does not hold, and a decode backend other than ``cuda``/``torch``.
+    gemma3-27b and the banded prefill it needs (item 12.3) are ported: the
+    sliding-window forward that raised before now takes ``_flash_banded``
+    (``tests/test_torch_banded.py`` holds it against the reference)."""
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("gemma3-270b")
+    assert get_config("gemma3-27b").local_window == 1024
     _, _, tcfg, tparams = _pair("granite_3_8b", sliding_window=2,
                                 attn_chunk=4)
-    with pytest.raises(NotImplementedError, match="12.3 .*_flash_banded"):
-        lm.forward_hidden(tparams, torch.zeros((1, 16), dtype=torch.long),
-                          tcfg)
+    h, _ = lm.forward_hidden(tparams, torch.zeros((1, 16), dtype=torch.long),
+                             tcfg)
+    assert h.shape == (1, 16, tcfg.d_model) and bool(torch.isfinite(h).all())
     with pytest.raises(ValueError, match="backend"):
         lm.decode_step(tparams, lm.init_cache(tcfg, 1, 8, device="cpu"),
                        torch.zeros((1, 1), dtype=torch.long), tcfg,
