@@ -3,7 +3,8 @@
 
 It drives the port's paths: the codec round trip with its indexed store,
 serving services, network front end and scale-out encode (phases 3-17),
-the LM serve path (phases 18-20) and the LM trainer (phase 21).
+the LM serve path (phases 18-20), the LM trainer (phase 21) and the dry
+run's cost counter (phase 22).
 
 Run from the root of a checkout, with no arguments:
 
@@ -58,10 +59,10 @@ Phases, each fatal on failure (no failure is caught):
               same encode and decode again under ``torch.profiler``: the
               card's busy share and device time by kernel name.
 8. ops     -- MAG with ``matcher="ops"`` (K3 once per block step), the
-              first 8 of 16 chunks (2**19 samples a channel; all 16 before
-              phase 15 took the room): the streams must equal the fused
-              streams of the same chunks byte for byte, with one K3 launch
-              per block stepped and no K1 launch.
+              first 4 of 16 chunks (2**18 samples a channel; all 16 before
+              phase 15, 8 before phase 22 took the room): the streams must
+              equal the fused streams of the same chunks byte for byte,
+              with one K3 launch per block stepped and no K1 launch.
 9. bound   -- the error-bounded mode on ``backend="cuda"``, all 16 chunks
               (2**20 samples a channel): MAG with
               ``error_bound``, ANG_delta with ``error_bound_rel``.  Every
@@ -266,7 +267,25 @@ Phases, each fatal on failure (no failure is caught):
               the flattened gradient == the plain scan on the card,
               bitwise.  Prints the checkpoint's bytes (reckoned and on
               disk), hit rate, wire ratio and seconds a compress.
-22. timing -- each kernel at a main-path shape against its plain version
+22. dryrun -- the dry run: (a) ``python -m repro_torch.launch.dryrun`` on
+              the reference test's four SMOKE cells (granite-3-8b
+              train_4k multi, granite-moe-1b-a400m train_4k single,
+              rwkv6-3b long_500k multi, zamba2-1.2b decode_32k single)
+              and one FULL cell a mesh (granite-3-8b decode_32k single,
+              gemma3-27b long_500k multi), each in its own process
+              without the card, all at once: every record ``ok``, FLOPs
+              and bytes above 0, 256 or 512 chips; prints each cell's
+              per-chip FLOPs, bytes, wire bytes by kind and trace
+              seconds.  (b) the cost counter around a meta trace of
+              granite-3-8b's ``decode_step`` at [serve]'s shape (40
+              layers, B=8, a 2,048-position cache, bf16) against the
+              same step on the card (K4 40 launches): FLOPs and bytes
+              equal, the arguments reckoned on meta equal to what the
+              card's allocation grew by within 512 B a tensor; and one
+              train step of granite-moe-1b-a400m at 2 of 24 layers, 8 x
+              128 tokens, 2 microbatches, meta against the card: FLOPs
+              and bytes equal.
+23. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
@@ -291,6 +310,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -305,9 +325,10 @@ CHANNELS, SAMPLES, CHUNKS = 64, 2 ** 20, 16
 # keep the run short; the paths added after it run all 16 but [ops]
 # (below).
 MAIN_CHUNKS = 4
-# [ops] (phase 8) runs the first half of the feeds: phase 15's
-# dictionary-sharded scans took the room in the script's time budget.
-OPS_CHUNKS = 8
+# [ops] (phase 8) runs the first quarter of the feeds: phase 15's
+# dictionary-sharded scans took the room of half of them, phase 22's dry
+# run of a quarter more, in the script's time budget.
+OPS_CHUNKS = 4
 # The reference package's stand-in for the paper's uPMU channels
 # (benchmarks/common.py, 262,144 samples each): channel c takes template
 # c % 4.  MAG: (level, noise, tap_step, level shifts); 6 tap changes.
@@ -324,14 +345,15 @@ ANG_TEMPLATES = ((0.72, 0.04), (0.31, 0.02), (0.72, 0.06), (0.29, 0.03))
 TURNOVER_LEVELS = 384
 ORACLE_BLOCKS = 2048
 PLAIN_CHANNELS = (0, 21, 42, 63)
-CONFIGS = {  # the paper's Table I (src/repro/configs/idealem_paper.py)
-    "MAG": dict(mode="std", block_size=32, num_dict=255, alpha=0.01,
-                rel_tol=0.5),
-    "ANG_residual": dict(mode="residual", block_size=112, num_dict=255,
-                         alpha=0.01, rel_tol=0.5, value_range=(0.0, 360.0)),
-    "ANG_delta": dict(mode="delta", block_size=112, num_dict=255, alpha=0.01,
-                      rel_tol=0.5, value_range=(0.0, 360.0)),
-}
+# The paper's Table I, the port's ``configs/idealem_paper.py`` (copies: a
+# rehearsal may shrink ``num_dict`` in place).  Outside a checkout this
+# import fails, and the script prints no result.
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.configs import idealem_paper  # noqa: E402
+
+CONFIGS = {"MAG": dict(idealem_paper.MAG),
+           "ANG_residual": dict(idealem_paper.ANG_RESIDUAL),
+           "ANG_delta": dict(idealem_paper.ANG_DELTA)}
 # NVIDIA H100 SXM data sheet: HBM3 3.35 TB/s; 67 TFLOP/s f32 and 34 TFLOP/s
 # f64 outside the tensor cores.
 HBM_BPS = 3.35e12
@@ -478,6 +500,21 @@ TRAIN_FT_LAYERS, TRAIN_FT_STEPS, TRAIN_FT_EVERY, TRAIN_FT_CRASH = 2, 5, 2, 3
 # blocks of the flattened gradient whose K1 decisions are held against the
 # plain scan on the card
 TRAIN_PREFIX_BLOCKS = 4096
+# [dryrun] (22.): the reference test's four SMOKE cells and one FULL cell a
+# mesh through ``python -m repro_torch.launch.dryrun``, each in its own
+# process (its own fake process group, no card); then the cost counter
+# around a meta trace and a card run of granite-3-8b's decode at
+# [serve]'s shape and of granite-moe's train step at [train]'s batch
+DRYRUN_SMOKE = (("granite-3-8b", "train_4k", "multi"),
+                ("granite-moe-1b-a400m", "train_4k", "single"),
+                ("rwkv6-3b", "long_500k", "multi"),
+                ("zamba2-1.2b", "decode_32k", "single"))
+DRYRUN_FULL = (("granite-3-8b", "decode_32k", "single"),
+               ("gemma3-27b", "long_500k", "multi"))
+DRYRUN_TIMEOUT = 300
+DRYRUN_TRAIN_LAYERS = 2
+# the caching allocator rounds each allocation up to 512 bytes
+ALLOC_ROUND = 512
 
 T_START = time.perf_counter()
 
@@ -3927,6 +3964,149 @@ def time_k4(torch, dev, B, C, Hkv=8, G=4, hd=128):
     }
 
 
+def phase_dryrun(torch, dev, card):
+    """The dry run (22.): (a) its cells in subprocesses, (b) its cost
+    counter on a meta trace against the same step on the card.  Returns
+    K4's launches on the card's decode step."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as k4
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.hlo_cost import CostCounter
+    from repro_torch.models import lm
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    def tensors(tree):
+        return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+    t_start = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun-"))
+    # (a) every cell in its own process, all at once; no card
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    runs = []
+    try:
+        for smoke, cells in ((True, DRYRUN_SMOKE), (False, DRYRUN_FULL)):
+            for arch, shape, mesh in cells:
+                out = tmp / str(len(runs))
+                log = tmp / f"{len(runs)}.log"
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--mesh", mesh,
+                       "--out", str(out)] + (["--smoke"] if smoke else [])
+                with open(log, "w") as f:
+                    runs.append((arch, shape, mesh, smoke, out, log,
+                                 subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                                  stdout=f,
+                                                  stderr=subprocess.STDOUT)))
+
+        # (b) the counter on a meta trace and on the card: the decode
+        cfg = get_config(SERVE_ARCH)
+        B, C = SERVE_BATCH, SERVE_MAX_SEQ
+        params = lm.init_params(cfg, device="meta")
+        cache = lm.init_cache(cfg, B, C, device="meta")
+        arg_bytes = sum(t.numel() * t.element_size()
+                        for t in tensors((params, cache)))
+        n_args = len(tensors((params, cache)))
+        tokens = torch.zeros((B, 1), dtype=torch.int64, device="meta")
+        t0 = time.perf_counter()
+        with CostCounter("meta") as meta:
+            lm.decode_step(params, cache, tokens, cfg, backend="cuda")
+        meta_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        m0 = torch.cuda.memory_allocated()
+        params = lm.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        cache = lm.init_cache(cfg, B, C, device=dev)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - m0
+        check(0 <= grown - arg_bytes <= ALLOC_ROUND * n_args,
+              f"[dryrun] decode arguments: {arg_bytes} B reckoned on meta, "
+              f"the card's allocation grew {grown} B ({n_args} tensors)")
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, 1))).to(dev)
+        k4.launches = 0
+        with CostCounter("cuda") as real:
+            logits, cache = lm.decode_step(params, cache, tokens, cfg,
+                                           backend="cuda")
+            torch.cuda.synchronize()
+        launches = k4.launches
+        n_attn = sum(k in lm.SELF_ATTN_KINDS for k in lm.layer_kinds(cfg))
+        check(launches == n_attn == 40,
+              f"[dryrun] K4 launches {launches} on the decode step")
+        check(bool(torch.isfinite(logits).all()), "[dryrun] decode logits")
+        check(real.flops == meta.flops and real.bytes == meta.bytes,
+              f"[dryrun] decode: card {real.flops} FLOPs {real.bytes} B, "
+              f"meta {meta.flops} FLOPs {meta.bytes} B")
+        say(f"[dryrun] {cfg.name} decode B={B} C={C} bf16: FLOPs "
+            f"{real.flops:.0f} (meta {meta.flops:.0f}), bytes "
+            f"{real.bytes:.0f} (meta {meta.bytes:.0f}); arguments "
+            f"{arg_bytes} B reckoned, the card's allocation grew {grown} "
+            f"B; K4 {launches} launches; meta trace {meta_s:.3f} s; {card}")
+        del params, cache, logits
+        torch.cuda.empty_cache()
+
+        # the train step: granite-moe at published widths, 2 layers
+        tcfg = get_config(TRAIN_ARCH).replace(num_layers=DRYRUN_TRAIN_LAYERS)
+        step = make_train_step(tcfg, lr=TRAIN_LR, microbatches=TRAIN_MICRO)
+        shape = (TRAIN_BATCH, TRAIN_SEQ)
+        mbatch = {k: torch.zeros(shape, dtype=torch.int64, device="meta")
+                  for k in ("tokens", "labels")}
+        mstate = init_train_state(tcfg, device="meta")
+        with CostCounter("meta") as meta:
+            step(mstate, mbatch)
+        state = init_train_state(
+            tcfg, torch.Generator(device=dev).manual_seed(0), dev)
+        batch = {k: torch.as_tensor(v).long().to(dev) for k, v in
+                 launcher.build_batches(tcfg, 1, *shape)[0].items()}
+        torch.cuda.synchronize()
+        with CostCounter("cuda") as real:
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+        check(np.isfinite(loss), f"[dryrun] train loss {loss}")
+        check(real.flops == meta.flops and real.bytes == meta.bytes,
+              f"[dryrun] train: card {real.flops} FLOPs {real.bytes} B, "
+              f"meta {meta.flops} FLOPs {meta.bytes} B")
+        say(f"[dryrun] {TRAIN_ARCH} train step {DRYRUN_TRAIN_LAYERS} of "
+            f"{get_config(TRAIN_ARCH).num_layers} layers, {shape[0]} x "
+            f"{shape[1]}, {TRAIN_MICRO} microbatches: FLOPs "
+            f"{real.flops:.0f} (meta {meta.flops:.0f}), bytes "
+            f"{real.bytes:.0f} (meta {meta.bytes:.0f}); loss {loss}; {card}")
+        del state, m, batch
+        torch.cuda.empty_cache()
+
+        # (a) the cells' records
+        for arch, shape, mesh, smoke, out, log, proc in runs:
+            left = DRYRUN_TIMEOUT - (time.perf_counter() - t_start)
+            rc = proc.wait(timeout=max(left, 1))
+            text = log.read_text()
+            check(rc == 0, f"[dryrun] {arch} {shape} {mesh}: exit {rc}: "
+                  f"{text[-2000:]}")
+            tag = f"{arch.replace('-', '_').replace('.', '_')}_{shape}_{mesh}"
+            rec = json.loads((out / f"{tag}.json").read_text())
+            chips = 512 if mesh == "multi" else 256
+            check(rec["status"] == "ok" and rec["flops_per_chip"] > 0
+                  and rec["bytes_per_chip"] > 0 and rec["chips"] == chips,
+                  f"[dryrun] {tag}: {rec}")
+            wire = ", ".join(
+                f"{k} {d['count']} x {d['wire_bytes']:.0f} B"
+                for k, d in sorted(rec["collectives"].items()))
+            say(f"[dryrun] {tag} {'SMOKE' if smoke else 'FULL'} on "
+                f"{rec['mesh']}: FLOPs/chip {rec['flops_per_chip']:.0f}, "
+                f"bytes/chip {rec['bytes_per_chip']:.0f}, wire/chip "
+                f"{rec['collective_wire_bytes_per_chip']:.0f} B ({wire}); "
+                f"arguments {rec['memory_analysis']['argument_size_in_bytes']}"
+                f" B; trace {rec['trace_s']:.2f} s")
+    finally:
+        for run in runs:
+            if run[-1].poll() is None:
+                run[-1].kill()
+                run[-1].wait()
+    say(f"[dryrun] phase {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
 def phase_timing(torch, dev, card, first_chunks, k2_reads):
     """Each kernel at its main-path shapes (22.): returns the timings that
     the kernels JSON line reports, by kernel.  ``k2_reads`` holds K2's
@@ -4038,6 +4218,7 @@ def main() -> int:
     launches["flash_decode"] = phase_serve(torch, dev, card)
     launches["flash_decode"] += phase_families(torch, dev, card)
     launches["encode_step"] += phase_train(torch, dev, card)
+    launches["flash_decode"] += phase_dryrun(torch, dev, card)
     timed = phase_timing(torch, dev, card, first_chunks, k2_reads)
 
     def entry(name, source, replaces):

@@ -17,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["kolmogorov_sf", "ks_pvalue", "ks_statistic_many",
+__all__ = ["kolmogorov_sf", "ks_pvalue", "ks_statistic",
+           "ks_statistic_sorted", "ks_statistic_many",
            "ks_statistic_many_masked", "searchsorted_right",
            "critical_distance"]
 
@@ -100,6 +101,34 @@ def _ecdf_gaps(xs, ys, div):
     d1 = torch.abs(pos / div - searchsorted_right(ys, xs).to(f32) / div)
     d2 = torch.abs(searchsorted_right(xs, ys).to(f32) / div - pos / div)
     return d1, d2
+
+
+def _ecdf_distance_sorted(xs, ys):
+    """sup_x |F_x - F_y| of sorted 1-D samples ``xs`` (n1,) and ``ys``
+    (n2,), evaluated at every point of both (the ECDFs are right-continuous
+    step functions, so the sup sits at a jump), in float32 as the
+    reference's ``_ecdf_distance_sorted``."""
+    n1, n2 = xs.shape[0], ys.shape[0]
+    f32 = torch.float32
+    fx_at_x = torch.arange(1, n1 + 1, dtype=f32, device=xs.device) / n1
+    fy_at_x = searchsorted_right(ys, xs).to(f32) / n2
+    d1 = torch.max(torch.abs(fx_at_x - fy_at_x))
+    fy_at_y = torch.arange(1, n2 + 1, dtype=f32, device=ys.device) / n2
+    fx_at_y = searchsorted_right(xs, ys).to(f32) / n1
+    d2 = torch.max(torch.abs(fx_at_y - fy_at_y))
+    return torch.maximum(d1, d2)
+
+
+def ks_statistic_sorted(xs, ys) -> torch.Tensor:
+    """KS statistic between two already-sorted samples."""
+    return _ecdf_distance_sorted(torch.as_tensor(xs), torch.as_tensor(ys))
+
+
+def ks_statistic(x, y) -> torch.Tensor:
+    """KS statistic between two unsorted samples (sorted NaN last, as
+    ``jnp.sort`` sorts)."""
+    return _ecdf_distance_sorted(torch.sort(torch.as_tensor(x)).values,
+                                 torch.sort(torch.as_tensor(y)).values)
 
 
 def ks_statistic_many(xs_sorted: torch.Tensor,

@@ -14,10 +14,14 @@ only difference, the sign of an exact-zero remainder, is erased by the
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
 
-__all__ = ["np_wrap_centered", "np_wrap_range", "wrap_range"]
+__all__ = ["np_wrap_centered", "np_wrap_range", "wrap_centered",
+           "wrap_range", "residual_forward", "residual_inverse",
+           "delta_forward", "delta_inverse"]
 
 
 def np_wrap_centered(v, rmin, rmax):
@@ -35,3 +39,52 @@ def np_wrap_range(v, rmin, rmax):
 def wrap_range(v: torch.Tensor, rmin: float, rmax: float) -> torch.Tensor:
     """Tensor twin of :func:`np_wrap_range` (same dtype in, same out)."""
     return torch.remainder(v - rmin, rmax - rmin) + rmin
+
+
+def wrap_centered(v: torch.Tensor, rmin: float, rmax: float) -> torch.Tensor:
+    """Tensor twin of :func:`np_wrap_centered`."""
+    w = rmax - rmin
+    return torch.remainder(v + 0.5 * w, w) - 0.5 * w
+
+
+def residual_forward(blocks, value_range: Optional[Tuple[float, float]] = None):
+    """blocks (..., B) -> (bases (...,), residuals (..., B-1))."""
+    blocks = torch.as_tensor(blocks)
+    base = blocks[..., 0]
+    res = blocks[..., 1:] - base[..., None]
+    if value_range is not None:
+        res = wrap_centered(res, *value_range)
+    return base, res
+
+
+def residual_inverse(base, res,
+                     value_range: Optional[Tuple[float, float]] = None):
+    """(bases (...,), residuals (..., B-1)) -> blocks (..., B)."""
+    base = torch.as_tensor(base)[..., None]
+    vals = torch.cat([base, base + torch.as_tensor(res)], dim=-1)
+    if value_range is not None:
+        vals = wrap_range(vals, *value_range)
+    return vals
+
+
+def delta_forward(blocks, value_range: Optional[Tuple[float, float]] = None):
+    """blocks (..., B) -> (bases (...,), deltas (..., B-1))."""
+    blocks = torch.as_tensor(blocks)
+    base = blocks[..., 0]
+    d = blocks[..., 1:] - blocks[..., :-1]
+    if value_range is not None:
+        d = wrap_centered(d, *value_range)
+    return base, d
+
+
+def delta_inverse(base, deltas,
+                  value_range: Optional[Tuple[float, float]] = None):
+    """(bases (...,), deltas (..., B-1)) -> blocks (..., B) via a cumsum
+    (``torch.cumsum``, the reference's ``jnp.cumsum``; the codec's decode
+    takes K2 instead)."""
+    base = torch.as_tensor(base)[..., None]
+    vals = torch.cat([base, base + torch.cumsum(torch.as_tensor(deltas),
+                                                dim=-1)], dim=-1)
+    if value_range is not None:
+        vals = wrap_range(vals, *value_range)
+    return vals

@@ -1,10 +1,6 @@
-"""Host data pipeline: a prefetching loader and the IDEALEM-compressed
-telemetry ingestion path (compress a fleet's channels, read them back).
-
-The reference package's ``data/pipeline.py`` also places batches on a
-device mesh (``place_on_mesh``); that waits with the rest of sharding
-(``models.common.UNPORTED``).  A ``Prefetcher``'s ``place`` callable can
-move each batch to a device.
+"""Host data pipeline: a prefetching loader, batch placement on a device
+mesh, and the IDEALEM-compressed telemetry ingestion path (compress a
+fleet's channels, read them back).
 """
 from __future__ import annotations
 
@@ -13,10 +9,12 @@ import threading
 from typing import Callable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from ..core import IdealemCodec
 
-__all__ = ["Prefetcher", "compress_channels", "compressed_telemetry_reader"]
+__all__ = ["Prefetcher", "place_on_mesh", "compress_channels",
+           "compressed_telemetry_reader"]
 
 
 class Prefetcher:
@@ -47,6 +45,23 @@ class Prefetcher:
         if item is self._done:
             raise StopIteration
         return item
+
+
+def place_on_mesh(mesh, batch_axes=("data",)):
+    """A ``place`` callable (for :class:`Prefetcher`) that shards each
+    tensor of a dict batch along dim 0 over ``batch_axes`` of ``mesh`` (a
+    ``torch.distributed`` ``DeviceMesh``) and replicates it over the other
+    axes: a dict of ``DTensor``s on the mesh's device type."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..launch.sharding import P, to_placements
+    placements = to_placements(P(tuple(batch_axes)), mesh)
+
+    def place(batch):
+        return {k: distribute_tensor(torch.as_tensor(v), mesh, placements)
+                for k, v in batch.items()}
+
+    return place
 
 
 def compressed_telemetry_reader(blobs, codec: IdealemCodec

@@ -28,7 +28,7 @@ from pathlib import Path
 from typing import Dict
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "build_all", "load", "build_log",
-           "count_launch"]
+           "count_launch", "cost_counters", "report_cost"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -124,6 +124,17 @@ def load(name: str) -> ctypes.CDLL:
                 build_all()
             lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         return lib
+
+
+#: Active cost counters (``launch.hlo_cost.CostCounter`` adds itself while
+#: it counts); a kernel, which no dispatch mode sees, reports to them.
+cost_counters: list = []
+
+
+def report_cost(flops: float, nbytes: float) -> None:
+    """A kernel's reckoned FLOPs and bytes, to every active counter."""
+    for counter in cost_counters:
+        counter.add(flops, nbytes)
 
 
 def count_launch(module) -> None:

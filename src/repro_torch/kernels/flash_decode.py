@@ -10,7 +10,12 @@ to -1e30, softmax, then the weighted sum of V -> (B, H, hd) float32.  Query
 head ``h`` reads kv head ``h // (H // Hkv)``.
 
 :func:`flash_decode` launches the kernel for CUDA tensors and runs the plain
-version, :func:`flash_decode_torch`, for CPU tensors.  The TPU kernel's
+version, :func:`flash_decode_torch`, for CPU tensors.  For meta tensors (a
+dry run's trace) it launches nothing and returns an empty output; for
+``DTensor`` operands it runs on the local shards (:func:`_on_shards`).  On
+the card and on meta it reports its reckoned cost (:func:`cost`) to the
+active cost counters (``launch.hlo_cost``), so a traced step and a real
+one count the same FLOPs and bytes.  The TPU kernel's
 ``CHUNK_C`` and its ``C % chunk == 0`` assertion have no counterpart: the
 kernel takes any C >= 1.  It splits the cache axis across CTAs; the split
 count comes from the library's ``*_plan`` entry (B, Hkv, C and the card's
@@ -29,7 +34,8 @@ import torch
 from ..errors import KernelShapeError
 from . import _build
 
-__all__ = ["flash_decode", "flash_decode_torch", "launches", "NEG_INF"]
+__all__ = ["flash_decode", "flash_decode_torch", "cost", "launches",
+           "NEG_INF"]
 
 #: Kernel launches since import (or since a caller reset it to 0).
 launches = 0
@@ -58,6 +64,51 @@ def flash_decode_torch(q, k_cache, v_cache, valid):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgc,bckd->bkgd", p, v_cache.float())
     return o.reshape(B, H, hd)
+
+
+def cost(q, k_cache, v_cache, valid):
+    """K4's reckoned (FLOPs, bytes): the FLOPs of its plain version's two
+    einsums, 4*B*H*C*hd; the bytes of the K/V cache in its own dtype, q,
+    valid and the float32 output, each read or written once."""
+    B, H, hd = q.shape
+    C = k_cache.shape[1]
+    flops = 4 * B * H * C * hd
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (q, k_cache, v_cache, valid)) + B * H * hd * 4
+    return flops, nbytes
+
+
+def _on_shards(q, k_cache, v_cache, valid):
+    """K4 on the local shards of ``DTensor`` operands.  The cache decides
+    the layout: its batch dim's mesh axes shard q's and valid's batch, its
+    kv-head dim's shard q's heads (each shard's query heads then read its
+    own kv heads), every other mesh axis replicates; an operand in another
+    layout is redistributed (a counted collective).  A cache sharded along
+    its sequence takes ``models.attention``'s distributed softmax
+    instead."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = k_cache.device_mesh
+    kp = tuple(k_cache.placements)
+    if any(p.is_shard(1) for p in kp):
+        raise KernelShapeError(
+            "flash_decode: a cache sharded along its sequence has no local "
+            "K4 call (models.attention merges the shards' softmaxes)")
+    qp = tuple(Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2)
+               else Replicate() for p in kp)
+    vp = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in kp)
+
+    def placed(t, placements):
+        if not isinstance(t, DTensor):  # a plain tensor is replicated
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        if tuple(t.placements) != placements:
+            t = t.redistribute(mesh, placements)
+        return t.to_local()
+
+    out = flash_decode(placed(q, qp), k_cache.to_local(),
+                       placed(v_cache, kp), placed(valid, vp))
+    return DTensor.from_local(out, mesh, qp, run_check=False,
+                              shape=q.shape, stride=q.stride())
 
 
 def _kernel(dtype):
@@ -91,7 +142,7 @@ def _splits(device, dtype, B, C, Hkv, G, hd):
     return splits
 
 
-def _check(q, k_cache, v_cache, valid):
+def _check(q, k_cache, v_cache, valid, pointers: bool = True):
     if q.dim() != 3 or q.dtype != torch.float32 or not q.is_contiguous():
         raise KernelShapeError(
             f"flash_decode: q must be a contiguous (B, H, hd) float32 tensor, "
@@ -109,11 +160,11 @@ def _check(q, k_cache, v_cache, valid):
                 f"flash_decode: {name} must be {(B, C, Hkv, hd)} float32, "
                 f"float16 or bfloat16 (one dtype for both caches), got "
                 f"{tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if pointers and (not t.is_contiguous() or t.data_ptr() % 16):
             raise KernelShapeError(
                 f"flash_decode: {name} is not contiguous or not 16-byte "
                 f"aligned (the kernel copies rows in 16-byte pieces)")
-    if q.data_ptr() % 16:
+    if pointers and q.data_ptr() % 16:
         raise KernelShapeError(
             "flash_decode: q is not 16-byte aligned (the kernel reads it "
             "with 16-byte loads)")
@@ -143,9 +194,17 @@ def flash_decode(q, k_cache, v_cache, valid):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     the current stream or raise (:class:`KernelShapeError` for operands the
-    kernel does not take, ``RuntimeError`` for a failed launch)."""
+    kernel does not take, ``RuntimeError`` for a failed launch).  Meta
+    tensors launch nothing: an empty output, the cost reported to the
+    active counters.  ``DTensor`` operands run on their local shards."""
+    if hasattr(k_cache, "placements"):  # a DTensor
+        return _on_shards(q, k_cache, v_cache, valid)
     if q.device.type == "cpu":
         return flash_decode_torch(q, k_cache, v_cache, valid)
+    if q.device.type == "meta":
+        _check(q, k_cache, v_cache, valid, pointers=False)
+        _build.report_cost(*cost(q, k_cache, v_cache, valid))
+        return torch.empty(q.shape, dtype=torch.float32, device="meta")
     if q.device.type != "cuda":
         raise KernelShapeError(f"flash_decode: unsupported device {q.device}")
     _check(q, k_cache, v_cache, valid)
@@ -171,4 +230,6 @@ def flash_decode(q, k_cache, v_cache, valid):
         raise RuntimeError(
             f"flash_decode kernel launch failed: CUDA error {rc}")
     _build.count_launch(sys.modules[__name__])
+    if _build.cost_counters:
+        _build.report_cost(*cost(q, k_cache, v_cache, valid))
     return out

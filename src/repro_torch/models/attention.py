@@ -14,6 +14,12 @@ self-attention whose sequence spans more chunks than its band takes
 visits only the kv chunks of its band, so the work scales with
 S * window instead of S * T.
 
+Under a dry run's mesh (``launch/dryrun.py``) the operands are
+``DTensor``s.  A cache sharded along its sequence (the long-context cell,
+batch 1) takes :func:`_decode_sequence_sharded`: each shard attends over
+its own positions and two all-reduces merge the partial softmaxes, where
+the reference leaves GSPMD to derive the same distributed softmax.
+
 Difference from the reference, by design: the cache slot of the new token
 is written in place, where the reference returns a new cache from
 ``dynamic_update_slice``; at full width a functional update would copy
@@ -22,13 +28,14 @@ the whole 2.68 GB cache each step.  ``KVCache.length`` is a Python int
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..kernels.flash_decode import NEG_INF, flash_decode, flash_decode_torch
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, dense_init, logical
 
 __all__ = ["rope", "rope_angles", "init_attention", "attention",
            "cross_attention", "KVCache", "init_kv_cache", "ring_valid",
@@ -108,17 +115,16 @@ def _flash_chunks(q, k, v, q_pos, kv_pos, *, causal: bool,
     T = k.shape[1]
     chunk = min(chunk, T)
     pad = (-T) % chunk
-    if pad:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    if pad:  # zeros after the sequence (a cat: some DTensor releases
+        # fail on pad)
+        k, v = (torch.cat([t, t.new_zeros((B, pad) + tuple(t.shape[2:]))],
+                          dim=1) for t in (k, v))
         kv_pos = torch.nn.functional.pad(
             kv_pos, (0, pad), value=np.iinfo(np.int32).max // 2)
     nchunk = k.shape[1] // chunk
     qs = _scaled(q)
 
-    o = torch.zeros((B, H, S, hd), dtype=torch.float32, device=q.device)
-    m = torch.full((B, H, S), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+    o, m, l = _accumulators(qs.transpose(1, 2))  # (B,H,S,hd), (B,H,S) x 2
     for j in range(nchunk):
         sl = slice(j * chunk, (j + 1) * chunk)
         kb, vb, pb = k[:, sl], v[:, sl], kv_pos[sl]
@@ -140,6 +146,18 @@ def _flash_chunks(q, k, v, q_pos, kv_pos, *, causal: bool,
         m = m_new
     o = o / torch.clamp(l, min=1e-30)[..., None]
     return o.transpose(1, 2).to(q.dtype)  # (B,S,H,hd)
+
+
+def _accumulators(like):
+    """The online softmax's running output (zeros of ``like``'s shape),
+    row max (-1e30) and row sum (zeros, without ``like``'s last dim), in
+    float32, contiguous, laid out as ``like`` (a ``DTensor``'s placements
+    too: under a mesh, zeros made apart from the operands would enter as
+    replicated and ask a partial gradient of a sharded one)."""
+    kw = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    o = torch.zeros_like(like, **kw)
+    return (o, torch.full_like(like[..., 0], NEG_INF, **kw),
+            torch.zeros_like(like[..., 0], **kw))
 
 
 def _scaled(q):
@@ -165,14 +183,10 @@ def _flash_banded(q, k, v, q_pos, *, window: int, chunk: int):
     vc = v.reshape(B, nq, chunk, H, hd)
     pc = q_pos.reshape(nq, chunk)
     qi = torch.arange(nq, device=q.device)
-    o = torch.zeros((B, nq, H, chunk, hd), dtype=torch.float32,
-                    device=q.device)
-    m = torch.full((B, nq, H, chunk), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, nq, H, chunk), dtype=torch.float32, device=q.device)
+    o, m, l = _accumulators(qc.transpose(2, 3))  # (B,nq,H,chunk,hd), ...
     for b in range(band):
         j = torch.clamp(qi - b, min=0)
-        kb, vb, pb = kc[:, j], vc[:, j], pc[j]
+        kb, vb, pb = kc.index_select(1, j), vc.index_select(1, j), pc[j]
         s = torch.einsum("bnshd,bnthd->bnhst", qc, kb.float())
         d = pc[:, :, None] - pb[:, None, :]  # (nq, chunk, chunk)
         mask = (d >= 0) & (d < window) & (qi - b >= 0)[:, None, None]
@@ -205,6 +219,9 @@ def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
     q = (x @ p["wq"].to(dt)).reshape(B, S, h, hd)
     k = (x @ p["wk"].to(dt)).reshape(B, S, kvh, hd)
     v = (x @ p["wv"].to(dt)).reshape(B, S, kvh, hd)
+    q = logical(q, "batch", None, "heads", None)
+    k = logical(k, "batch", None, "kv_heads", None)
+    v = logical(v, "batch", None, "kv_heads", None)
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if use_rope:
@@ -298,20 +315,86 @@ def decode_attention(p, x, cache: KVCache, cfg: ModelConfig, *,
                                             device=x.device),
                                  hd, cfg.rope_theta)
         q, k = _rotate(q, *angles), _rotate(k, *angles)
-    slot = pos % C
-    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
-    if valid is None:
-        valid = ring_valid(pos, C, window, x.device).expand(B, C)
-    # the reference reads the cache in the compute dtype, then in float32
-    kk = cache.k if cache.k.dtype == dt else cache.k.to(dt)
-    vv = cache.v if cache.v.dtype == dt else cache.v.to(dt)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(hd)))
     qs = q.reshape(B, h, hd).float() * scale
-    core = flash_decode if backend == "cuda" else flash_decode_torch
-    o = core(qs, kk, vv, valid)
+    placements = getattr(cache.k, "placements", None)  # a DTensor's
+    if placements is not None and any(pl.is_shard(1) for pl in placements):
+        o = _decode_sequence_sharded(qs, k, v, cache, window, dt)
+    else:
+        slot = pos % C
+        cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+        if valid is None:
+            valid = ring_valid(pos, C, window, x.device).expand(B, C)
+        # the reference reads the cache in the compute dtype, then in
+        # float32
+        kk = cache.k if cache.k.dtype == dt else cache.k.to(dt)
+        vv = cache.v if cache.v.dtype == dt else cache.v.to(dt)
+        core = flash_decode if backend == "cuda" else flash_decode_torch
+        o = core(qs, kk, vv, valid)
     out = o.reshape(B, 1, h * hd).to(dt) @ p["wo"].to(dt)
     return out, KVCache(cache.k, cache.v, pos + 1)
+
+
+def _decode_sequence_sharded(qs, k, v, cache: KVCache,
+                             window: Optional[int], dt):
+    """The decode core over a ``DTensor`` cache sharded along its
+    sequence (dim 1) over some mesh axes: the new token's K and V are
+    written by the shard that holds slot ``length % C``; each shard takes
+    the plain version's masked scores over its own positions, their row
+    max, the sum of their exponentials and the weighted V (the cache read
+    in the compute dtype ``dt``, then in float32); an all-reduce
+    of the maxima and one of the rescaled sums and outputs over the
+    sequence axes merge them.  Heads stay sharded as the cache's kv heads
+    are.  Returns the (B, H, hd) float32 output as a ``DTensor``."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = cache.k.device_mesh
+    kp = tuple(cache.k.placements)
+    B, C, _, hd = cache.k.shape
+    seq_dims = [d for d, pl in enumerate(kp) if pl.is_shard(1)]
+    shards = math.prod(mesh.size(d) for d in seq_dims)
+    coord = mesh.get_coordinate()
+    index = 0
+    for d in seq_dims:  # the shard's index along C, major to minor
+        index = index * mesh.size(d) + coord[d]
+    C_l = C // shards
+    first, slot = index * C_l, cache.length % C
+    new = tuple(Replicate() if pl.is_shard(1) else pl for pl in kp)
+
+    def local(t, placements):
+        if tuple(t.placements) != placements:
+            t = t.redistribute(mesh, placements)
+        return t.to_local()
+
+    k_l, v_l = cache.k.to_local(), cache.v.to_local()
+    if first <= slot < first + C_l:
+        k_l[:, slot - first] = local(k, new)[:, 0].to(k_l.dtype)
+        v_l[:, slot - first] = local(v, new)[:, 0].to(v_l.dtype)
+    valid = ring_valid(cache.length, C, window, k_l.device)
+    valid = valid[first:first + C_l].expand(k_l.shape[0], C_l)
+    qp = tuple(Shard(1) if pl.is_shard(2) else
+               Replicate() if pl.is_shard(1) else pl for pl in kp)
+    q_l = local(qs, qp)
+    Bl, Hl = q_l.shape[:2]
+    Hkv_l = k_l.shape[2]
+    qg = q_l.reshape(Bl, Hkv_l, Hl // Hkv_l, hd)
+    s = torch.einsum("bkgd,bckd->bkgc", qg, k_l.to(dt).float())
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    o = torch.einsum("bkgc,bckd->bkgd", p, v_l.to(dt).float())
+    m_all = m
+    for d in seq_dims:
+        m_all = funcol.all_reduce(m_all, "max", (mesh, d))
+    w = torch.exp(m - m_all)
+    packed = torch.cat([o * w[..., None], (p.sum(dim=-1) * w)[..., None]],
+                       dim=-1)
+    for d in seq_dims:
+        packed = funcol.all_reduce(packed, "sum", (mesh, d))
+    o = (packed[..., :hd] / packed[..., hd:]).reshape(Bl, Hl, hd)
+    return DTensor.from_local(o, mesh, qp, run_check=False, shape=qs.shape,
+                              stride=qs.stride())
 
 
 def prefill_kv(p, x, cfg: ModelConfig, max_seq: int,

@@ -15,7 +15,8 @@ from contextlib import contextmanager
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, dense_init, logical, replicated, \
+    unstacked
 
 __all__ = ["init_rmsnorm", "rmsnorm", "init_mlp", "mlp", "init_embed",
            "embed", "full_float32", "unembed"]
@@ -53,6 +54,7 @@ def mlp(p, x, cfg: ModelConfig):
         h = F.silu(x @ p["gate"].to(dt)) * up
     else:
         h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
+    h = logical(h, "batch", None, "ff")
     return h @ p["down"].to(dt)
 
 
@@ -65,7 +67,16 @@ def init_embed(cfg: ModelConfig, generator=None, device=None):
 
 
 def embed(p, tokens, cfg: ModelConfig):
-    return p["table"][tokens].to(cfg.dtype)
+    table = p["table"]
+    if hasattr(table, "placements"):
+        # a DTensor (the dry run): the table whole and ``F.embedding``,
+        # whose gradient has a sharding rule where indexing's
+        # ``index_put`` has none in some torch releases; token ids are
+        # in range there (indexing also wraps negative ones)
+        x = F.embedding(unstacked(tokens), replicated(table))
+    else:
+        x = table[tokens]
+    return logical(x.to(cfg.dtype), "batch", None, None)
 
 
 @contextmanager
@@ -85,4 +96,5 @@ def unembed(p, x, cfg: ModelConfig):
     in full float32 on the card whatever the caller's TF32 setting."""
     w = p["table"].T if cfg.tie_embeddings else p["unembed"]
     with full_float32():
-        return x.float() @ w.float()
+        logits = x.float() @ w.float()
+    return logical(logits, "batch", None, "vocab")

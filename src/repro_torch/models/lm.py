@@ -48,7 +48,7 @@ from ..tree import tree_leaves
 from .attention import (BACKENDS, KVCache, _repeat_kv, attention,
                         cross_attention, decode_attention, init_attention,
                         init_kv_cache, ring_valid, rope_angles)
-from .common import ModelConfig
+from .common import ModelConfig, logical
 from .layers import (embed, init_embed, init_mlp, init_rmsnorm, mlp, rmsnorm,
                      unembed)
 from .moe import init_moe, moe_ffn
@@ -237,7 +237,7 @@ def _apply_block(kinds, layers, shared, x, aux, cfg, memory):
         x, a = _apply_layer(kind, shared if kind == "shared_attn" else p, x,
                             cfg, memory)
         aux = aux + a
-    return x, aux
+    return logical(x, "batch", None, None), aux
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -324,10 +324,13 @@ def _chunk_loss(embed_params, x, labels, cfg: ModelConfig):
     (labels < 0 are masked), from float32 logits."""
     logits = unembed(embed_params, x, cfg)  # (B, C, V) float32
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0)[..., None])[..., 0]
+    # the gathered (B, C, 1) meets lse at its own shape: a vocab-sharded
+    # gather's pending reduction (a DTensor under the dry run) is taken
+    # there, where its mask has the same shape
+    gold = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])
     valid = (labels >= 0).float()
-    return torch.sum((lse - gold) * valid), torch.sum(valid)
+    return torch.sum((lse[..., None] - gold)[..., 0] * valid), \
+        torch.sum(valid)
 
 
 def lm_loss(params, batch, cfg: ModelConfig):

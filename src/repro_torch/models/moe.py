@@ -11,12 +11,13 @@ einsums.  Plain PyTorch: the reference reaches no Pallas kernel here.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, batch_local, dense_init, logical
 from .layers import full_float32
 
 __all__ = ["init_moe", "top_k", "moe_ffn"]
@@ -61,6 +62,30 @@ def _one_hot(idx, n: int):
         torch.int32)
 
 
+def _rows(flat):
+    """The batch row of each (token, k) copy: (B, S*K)."""
+    B, T = flat.shape
+    return torch.arange(B, device=flat.device)[:, None].expand(B, T)
+
+
+def _dispatch(xrep, flat, keep, safe_pos, E: int, C: int, bidx=None):
+    """Scatter the token copies ``xrep`` (B, S*K, d) into (B, E, C, d)
+    expert buffers; a dropped copy adds zeros at C-1, as the reference's
+    does.  ``bidx``: :func:`_rows` of ``flat`` (made here if None)."""
+    B, _, d = xrep.shape
+    buf = torch.zeros((B, E, C, d), dtype=xrep.dtype, device=xrep.device)
+    bidx = _rows(flat) if bidx is None else bidx
+    buf.index_put_((bidx, flat, torch.where(keep, safe_pos, C - 1)),
+                   torch.where(keep[..., None], xrep, 0), accumulate=True)
+    return buf
+
+
+def _gather_back(out_buf, flat, safe_pos, bidx=None):
+    """Each copy's expert output: (B, S*K, d)."""
+    bidx = _rows(flat) if bidx is None else bidx
+    return out_buf[bidx, flat, safe_pos]
+
+
 def _moe_ffn(p, x, cfg: ModelConfig, aux_loss: bool = True):
     """:func:`moe_ffn` and its ``keep`` mask (B, S*K): which (token, k)
     copies found room in their expert."""
@@ -91,23 +116,33 @@ def _moe_ffn(p, x, cfg: ModelConfig, aux_loss: bool = True):
     # scatter the token copies into (B, E, C, d) buffers; a dropped copy
     # adds zeros at C-1, as the reference's does
     xrep = x.repeat_interleave(K, dim=1)  # (B, S*K, d)
-    buf = torch.zeros((B, E, C, d), dtype=dt, device=x.device)
-    bidx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
+    bidx = None if hasattr(x, "placements") else _rows(flat)
     safe_pos = torch.where(keep, pos_in_e, 0)
-    buf.index_put_((bidx, flat, torch.where(keep, safe_pos, C - 1)),
-                   torch.where(keep[..., None], xrep, 0), accumulate=True)
+    buf = batch_local(functools.partial(_dispatch, E=E, C=C, bidx=bidx),
+                      xrep, flat, keep, safe_pos)
+    buf = logical(buf, "batch", "experts", None, None)
 
-    up = torch.einsum("becd,edf->becf", buf, p["experts_up"].to(dt))
+    # under a mesh the expert weights are gathered over their FSDP dim d
+    # before the products (the sharding policy's FSDP), expert and FFN
+    # dims on the rules' axes
+    w_in = ("experts", None, "moe_ff")
+    up = torch.einsum("becd,edf->becf", buf,
+                      logical(p["experts_up"].to(dt), *w_in))
     if cfg.act == "swiglu":
-        g = torch.einsum("becd,edf->becf", buf, p["experts_gate"].to(dt))
+        g = torch.einsum("becd,edf->becf", buf,
+                         logical(p["experts_gate"].to(dt), *w_in))
         h = F.silu(g) * up
     else:
         h = F.gelu(up, approximate="tanh")  # jax.nn.gelu's default
-    out_buf = torch.einsum("becf,efd->becd", h, p["experts_down"].to(dt))
+    # "moe_ff" maps to the model axis only when experts don't (EP vs TP)
+    h = logical(h, "batch", "experts", None, "moe_ff")
+    out_buf = torch.einsum("becf,efd->becd", h, logical(
+        p["experts_down"].to(dt), "experts", "moe_ff", None))
 
     # gather back and combine with the gates
-    y_tok = out_buf[bidx, flat, safe_pos]  # (B, S*K, d)
+    y_tok = batch_local(functools.partial(_gather_back, bidx=bidx), out_buf,
+                        flat, safe_pos)  # (B, S*K, d)
     y_tok = torch.where(keep[..., None], y_tok, 0)
     y_tok = y_tok * gates.reshape(B, S * K)[..., None].to(dt)
     y = y_tok.reshape(B, S, K, d).sum(dim=2)
-    return y, aux, keep
+    return logical(y, "batch", None, None), aux, keep

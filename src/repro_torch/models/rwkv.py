@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, dense_init, logical
 from .layers import init_rmsnorm, rmsnorm
 
 __all__ = ["init_time_mix", "init_channel_mix", "RwkvCache",
@@ -125,6 +125,9 @@ def time_mix_forward(p, x, cfg: ModelConfig):
     if pad:
         r, k, v, lw = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r, k, v, lw))
     nc = r.shape[1] // Q
+    # the chunk loop walks the sequence: each shard holds all of it
+    r, k, v, lw = (logical(t, "batch", None, "heads", None)
+                   for t in (r, k, v, lw))
 
     def to_chunks(t):  # (B, nc*Q, H, hd) -> (nc, B, H, Q, hd)
         return t.reshape(B, nc, Q, H, hd).permute(1, 0, 3, 2, 4).float()
@@ -132,7 +135,9 @@ def time_mix_forward(p, x, cfg: ModelConfig):
     rc, kc, vc, lwc = map(to_chunks, (r, k, v, lw))
     strict = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device), diagonal=-1)
-    state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    # zeros laid out as the chunks (a DTensor's placements too: see
+    # attention._accumulators)
+    state = torch.zeros_like(rc[0][:, :, :1]).expand(B, H, hd, hd)
     ys = []
     for rq, kq, vq, lwq in zip(rc, kc, vc, lwc):  # each (B,H,Q,hd)
         cum = torch.cumsum(lwq, dim=2)   # LW_t inclusive
@@ -189,6 +194,7 @@ def channel_mix_forward(p, x, cfg: ModelConfig, last=None):
     k = _mix(x, xprev, mu[0]) @ p["wk"].to(dt)
     r = _mix(x, xprev, mu[1]) @ p["wr"].to(dt)
     h = torch.square(torch.relu(k))
+    h = logical(h, "batch", None, "ff")
     return torch.sigmoid(r) * (h @ p["wv"].to(dt))
 
 

@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, dense_init, logical
 from .layers import init_rmsnorm, rmsnorm
 
 __all__ = ["init_ssm", "SSMCache", "init_ssm_cache", "ssm_forward",
@@ -62,7 +62,9 @@ def _conv_train(p, xbc, cfg: ModelConfig):
     """Causal depthwise conv over (B,S,ch), then SiLU."""
     kw = cfg.ssm_conv
     w = p["conv_w"].to(xbc.dtype)  # (kw, ch)
-    pad = F.pad(xbc, (0, 0, kw - 1, 0))
+    # zeros before the sequence (a cat: some DTensor releases fail on pad)
+    pad = torch.cat([xbc.new_zeros((xbc.shape[0], kw - 1, xbc.shape[2])),
+                     xbc], dim=1)
     S = xbc.shape[1]
     out = sum(pad[:, i:i + S, :] * w[i] for i in range(kw))
     return F.silu(out)
@@ -94,6 +96,7 @@ def ssm_forward(p, u, cfg: ModelConfig):
     xbc = _conv_train(p, xbc, cfg)
     x, Bm, Cm = torch.split(xbc, [di, N, N], dim=-1)
     x = x.reshape(B, S, H, P)
+    x = logical(x, "batch", None, "heads", None)
     dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B,S,H)
     A = -torch.exp(p["A_log"].float())  # (H,) negative
     a = dt * A  # (B,S,H) per-step log decay
@@ -104,13 +107,19 @@ def ssm_forward(p, u, cfg: ModelConfig):
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         Bm, Cm, dt, a = (F.pad(t, (0, 0, 0, pad)) for t in (Bm, Cm, dt, a))
     nc = x.shape[1] // Q
+    # the chunk loop walks the sequence: each shard holds all of it
+    Bm, Cm = (logical(t, "batch", None, None) for t in (Bm, Cm))
+    dt, a = (logical(t, "batch", None, "heads") for t in (dt, a))
 
     def to_chunks(t):  # (B, nc*Q, ...) -> (nc, B, Q, ...)
         return t.reshape((B, nc, Q) + t.shape[2:]).transpose(0, 1)
 
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=u.device))
-    state = torch.zeros((B, H, N, P), dtype=torch.float32, device=u.device)
+    # zeros laid out as x (a DTensor's placements too: see
+    # attention._accumulators)
+    state = torch.zeros_like(x[:, :1], dtype=torch.float32).transpose(
+        1, 2).expand(B, H, N, P)
     ys = []
     for xq, bq, cq, dtq, aq in zip(*map(to_chunks, (x, Bm, Cm, dt, a))):
         cum = torch.cumsum(aq, dim=1)  # (B,Q,H)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.common import ModelConfig
+from ..models.common import ModelConfig, logical, replicated
 from ..models.convert import _split, params_from_jax
 from ..models.lm import init_params, lm_loss
 from ..optim import adamw, gradcomp
@@ -76,6 +76,18 @@ def _on(dev, v):
     return t.to(dev)
 
 
+def _microbatched(v, microbatches: int):
+    """(B, ...) -> (microbatches, B / microbatches, ...): microbatch i is
+    rows ``i * size:(i + 1) * size``, as the reference's scan takes them.
+    Under a mesh (``models.common.logical``) the batch is gathered once a
+    step and each microbatch's rows are laid over the batch axes, where
+    slicing a batch-sharded batch would gather it for every microbatch
+    (and a reshape of the sharded dim would take a layout that depends
+    on the microbatch count)."""
+    v = replicated(v).reshape((microbatches, -1) + tuple(v.shape[1:]))
+    return logical(v, None, "batch", *([None] * (v.dim() - 2)))
+
+
 def make_train_step(cfg: ModelConfig, *, lr=3e-4, microbatches: int = 1,
                     weight_decay: float = 0.1, clip_norm: float = 1.0,
                     use_gradcomp: bool = False,
@@ -98,12 +110,12 @@ def make_train_step(cfg: ModelConfig, *, lr=3e-4, microbatches: int = 1,
         if b % microbatches:
             raise ValueError(f"batch of {b} rows in {microbatches} "
                              f"microbatches")
-        size = b // microbatches
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                 for p in leaves]
+        split = {k: _microbatched(v, microbatches) for k, v in batch.items()}
+        # zeros_like: a sharded parameter's sum takes its layout
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(microbatches):
-            mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            mb = {k: v[i] for k, v in split.items()}
             with torch.enable_grad():
                 ps = [p.detach().requires_grad_(True) for p in leaves]
                 loss = lm_loss(tree_unflatten(state.params, ps), mb, cfg)

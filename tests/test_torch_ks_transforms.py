@@ -105,3 +105,71 @@ def test_torch_wrap_range_matches_jax_f32():
     want = np.asarray(jtr.wrap_range(jnp.asarray(v), 0.0, 360.0))
     got = ttr.wrap_range(torch.from_numpy(v), 0.0, 360.0).numpy()
     assert got.tobytes() == want.tobytes()
+
+
+# ------------------------------------------------------ KS of two samples
+def _sample_pairs():
+    """(x, y) pairs: equal and unequal sizes, ties, a shifted copy, NaNs
+    (sorted last by both libraries)."""
+    rng = np.random.default_rng(7)
+    a = rng.normal(0, 1, 32).astype(np.float32)
+    ties = np.round(rng.normal(0, 1, 40), 1).astype(np.float32)
+    nan = a.copy()
+    nan[[3, 11]] = np.nan
+    return [(a, rng.normal(0, 1, 32).astype(np.float32)),
+            (a, rng.normal(0.3, 2, 17).astype(np.float32)),
+            (ties, np.round(rng.normal(0, 1, 40), 1).astype(np.float32)),
+            (a, a + np.float32(0.5)), (a, a), (nan, a)]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_ks_statistic_equals_reference(case):
+    """``ks_statistic`` (unsorted) and ``ks_statistic_sorted`` bitwise
+    against the reference's: the same float32 counts over n1 and n2."""
+    x, y = _sample_pairs()[case]
+    want = np.asarray(jks.ks_statistic(jnp.asarray(x), jnp.asarray(y)))
+    got = tks.ks_statistic(torch.from_numpy(x), torch.from_numpy(y))
+    assert got.dtype == torch.float32
+    assert got.item() == want.item()
+    xs, ys = np.sort(x), np.sort(y)
+    want = np.asarray(jks.ks_statistic_sorted(jnp.asarray(xs),
+                                              jnp.asarray(ys)))
+    got = tks.ks_statistic_sorted(torch.from_numpy(xs), torch.from_numpy(ys))
+    assert got.item() == want.item()
+
+
+# ------------------------------------------------- residual and delta
+@pytest.mark.parametrize("value_range", [None, (0.0, 360.0)])
+@pytest.mark.parametrize("mode", ["residual", "delta"])
+def test_transforms_equal_reference(mode, value_range):
+    """Forward transforms and their inverses, float32, against the
+    reference's ``residual_/delta_forward/inverse``: bases exact,
+    transformed values and reconstructions bitwise but for the delta
+    inverse's cumsum, which XLA takes as a parallel prefix and torch left
+    to right: within 2e-3, 4 ulps of float32 at the partial sums' largest
+    magnitude (15 deltas of up to 180: under 4096)."""
+    rng = np.random.default_rng(11)
+    blocks = rng.uniform(0, 360, (6, 9, 16)).astype(np.float32)
+    fwd = getattr(jtr, f"{mode}_forward")
+    inv = getattr(jtr, f"{mode}_inverse")
+    tfwd = getattr(ttr, f"{mode}_forward")
+    tinv = getattr(ttr, f"{mode}_inverse")
+    jb, jv = fwd(jnp.asarray(blocks), value_range)
+    tb, tv = tfwd(torch.from_numpy(blocks), value_range)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    want = np.asarray(inv(jb, jv, value_range))
+    got = tinv(tb, tv, value_range).numpy()
+    if mode == "residual":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+    if value_range is None:
+        np.testing.assert_allclose(got, blocks, rtol=0, atol=1e-3)
+
+
+def test_wrap_centered_equals_reference():
+    v = np.random.default_rng(3).uniform(-720, 720, 4096).astype(np.float32)
+    want = np.asarray(jtr.wrap_centered(jnp.asarray(v), 0.0, 360.0))
+    got = ttr.wrap_centered(torch.from_numpy(v), 0.0, 360.0).numpy()
+    np.testing.assert_array_equal(got, want)
