@@ -325,10 +325,9 @@ CHANNELS, SAMPLES, CHUNKS = 64, 2 ** 20, 16
 # keep the run short; the paths added after it run all 16 but [ops]
 # (below).
 MAIN_CHUNKS = 4
-# [ops] (phase 8) runs the first quarter of the feeds: phase 15's
-# dictionary-sharded scans took the room of half of them, phase 22's dry
-# run of a quarter more, in the script's time budget.
-OPS_CHUNKS = 4
+# [ops] (phase 8) runs the first half of the feeds: phase 15's
+# dictionary-sharded scans took the room in the script's time budget.
+OPS_CHUNKS = 8
 # The reference package's stand-in for the paper's uPMU channels
 # (benchmarks/common.py, 262,144 samples each): channel c takes template
 # c % 4.  MAG: (level, noise, tap_step, level shifts); 6 tap changes.
@@ -3969,6 +3968,15 @@ def phase_dryrun(torch, dev, card):
     counter on a meta trace against the same step on the card.  Returns
     K4's launches on the card's decode step."""
     import tempfile
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        launches = _dryrun_in(torch, dev, card, Path(tmp), t_start)
+    say(f"[dryrun] phase {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def _dryrun_in(torch, dev, card, tmp, t_start):
+    """:func:`phase_dryrun` with its records and logs under ``tmp``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_decode as k4
     from repro_torch.launch import train as launcher
@@ -3980,8 +3988,6 @@ def phase_dryrun(torch, dev, card):
     def tensors(tree):
         return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
-    t_start = time.perf_counter()
-    tmp = Path(tempfile.mkdtemp(prefix="dryrun-"))
     # (a) every cell in its own process, all at once; no card
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
@@ -4097,13 +4103,13 @@ def phase_dryrun(torch, dev, card):
                 f"bytes/chip {rec['bytes_per_chip']:.0f}, wire/chip "
                 f"{rec['collective_wire_bytes_per_chip']:.0f} B ({wire}); "
                 f"arguments {rec['memory_analysis']['argument_size_in_bytes']}"
-                f" B; trace {rec['trace_s']:.2f} s")
+                f" B; replication {rec['replication']:.4f}; trace "
+                f"{rec['trace_s']:.2f} s")
     finally:
         for run in runs:
             if run[-1].poll() is None:
                 run[-1].kill()
                 run[-1].wait()
-    say(f"[dryrun] phase {time.perf_counter() - t_start:.1f} s")
     return launches
 
 

@@ -14,6 +14,15 @@ under the per-chip cost counter (``launch/hlo_cost.py``).  It records:
   - flops_per_chip, bytes_per_chip: rank 0's local program
   - collectives, collective_wire_bytes_per_chip: per kind, ring model
   - memory_analysis: argument and output bytes of rank 0's local shards
+  - replication: flops_per_chip x chips over the FLOPs of the same step
+    traced with no mesh (1 where every chip does its own share)
+
+``DTensor`` propagates layouts to spend the least communication, compute
+counted as free, and the port pins them only where the reference has
+constraint sites, so a train or prefill cell's per-chip FLOPs include
+compute that every chip repeats (``replication`` well above 1): they are
+what this program runs on a chip, not a chip's share of the step, and
+not a per-chip MFU numerator.
 
 The reference's XLA-only keys (``xla_flops_body_once``,
 ``xla_bytes_body_once``, ``compile_s``) and its ``.hlo.zst`` have no
@@ -220,25 +229,28 @@ def _trace(cfg: ModelConfig, shape: ShapeSpec, mesh, baxes, batch: int,
            microbatches: int) -> Dict[str, Any]:
     """Run one cell's step on meta shards of ``cfg`` (at global batch
     ``batch``) under the cost counter; returns its counts and the local
-    bytes of its arguments and outputs."""
+    bytes of its arguments and outputs.  With ``mesh`` None, the whole
+    step on plain meta tensors."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from ..models import lm
     from ..serve import prefill_step
     from ..train import init_train_state, make_train_step
 
+    def place(tree, specs):  # specs(tree) -> its specs on the mesh
+        return tree if mesh is None else _distribute(tree, specs(tree), mesh)
+
     shape = ShapeSpec(shape.name, shape.seq_len, batch, shape.kind)
-    specs = input_specs(cfg, shape)
-    inputs = _distribute(specs, shd.batch_specs(specs, mesh, baxes), mesh)
+    inputs = place(input_specs(cfg, shape),
+                   lambda t: shd.batch_specs(t, mesh, baxes))
     if shape.kind == "train":
-        state = init_train_state(cfg, device="meta")
-        state = _distribute(state, shd.state_specs(state, cfg, mesh), mesh)
+        state = place(init_train_state(cfg, device="meta"),
+                      lambda t: shd.state_specs(t, cfg, mesh))
         step = make_train_step(cfg, lr=1e-4, microbatches=microbatches)
         args = (state, inputs)
     elif shape.kind == "prefill":
-        params = lm.init_params(cfg, device="meta")
-        params = _distribute(params, shd.param_specs(params, cfg, mesh),
-                             mesh)
+        params = place(lm.init_params(cfg, device="meta"),
+                       lambda t: shd.param_specs(t, cfg, mesh))
 
         def step(params, inputs):
             memory = inputs.get("memory")
@@ -247,20 +259,20 @@ def _trace(cfg: ModelConfig, shape: ShapeSpec, mesh, baxes, batch: int,
             return prefill_step(params, inputs["tokens"], cfg, memory)
         args = (params, inputs)
     else:
-        params = lm.init_params(cfg, device="meta")
-        params = _distribute(params, shd.param_specs(params, cfg, mesh),
-                             mesh)
-        cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len,
-                              _memory_len(cfg), device="meta")
-        cache = _distribute(cache, shd.cache_specs(
-            cache, cfg, mesh, baxes, shape.global_batch == 1), mesh)
+        params = place(lm.init_params(cfg, device="meta"),
+                       lambda t: shd.param_specs(t, cfg, mesh))
+        cache = place(lm.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                    _memory_len(cfg), device="meta"),
+                      lambda t: shd.cache_specs(t, cfg, mesh, baxes,
+                                                shape.global_batch == 1))
 
         def step(params, cache, inputs):
             return lm.decode_step(params, cache, inputs["tokens"], cfg,
                                   backend="cuda")
         args = (params, cache, inputs)
     arg_bytes = _local_bytes(args)
-    set_sharding_rules(shd.activation_rules(cfg, mesh, baxes))
+    set_sharding_rules(None if mesh is None
+                       else shd.activation_rules(cfg, mesh, baxes))
     try:
         with implicit_replication(), CostCounter() as counter:
             out = step(*args)
@@ -350,10 +362,11 @@ def _combine(points: List[Tuple[Tuple[int, ...], Dict[str, Fraction]]],
 
 def count_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, baxes,
                microbatches: int = 0) -> Dict[str, Any]:
-    """The per-chip counts of one cell: with ``cfg.scan_layers``, traced
-    at the :func:`_probes` (and, for a train step of more than 3
-    microbatches, at 2 and 3 microbatches of the full step's microbatch
-    size) and extrapolated; otherwise traced whole."""
+    """The per-chip counts of one cell (with ``mesh`` None, of the whole
+    step): with ``cfg.scan_layers``, traced at the :func:`_probes` (and,
+    for a train step of more than 3 microbatches, at 2 and 3 microbatches
+    of the full step's microbatch size) and extrapolated; otherwise traced
+    whole."""
     mb = 1
     if shape.kind == "train":
         mb = microbatches or cfg.train_microbatches
@@ -417,11 +430,14 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     mesh = make_production_mesh(multi_pod=multi_pod)
     counts = count_cell(cfg, shape, mesh, batch_axes(multi_pod),
                         microbatches)
+    chips = 512 if multi_pod else 256
+    whole = count_cell(cfg, shape, None, None, microbatches)["flops"]
+    counts["replication"] = counts["flops"] * chips / whole
     meta = {"arch": arch, "shape": shape_name,
             "mesh": "2x16x16" if multi_pod else "16x16",
             "kind": shape.kind, "n_params": cfg.param_count(),
             "n_active": cfg.active_param_count(),
-            "chips": 512 if multi_pod else 256,
+            "chips": chips,
             "global_batch": shape.global_batch, "seq_len": shape.seq_len}
     return counts, meta
 
@@ -438,6 +454,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
         rec["collectives"] = counts["collectives"]
         rec["collective_wire_bytes_per_chip"] = \
             counts["collective_wire_bytes"]
+        rec["replication"] = counts["replication"]
         rec["memory_analysis"] = {
             "argument_size_in_bytes": counts["argument_size_in_bytes"],
             "output_size_in_bytes": counts["output_size_in_bytes"]}

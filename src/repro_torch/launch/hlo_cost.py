@@ -198,9 +198,9 @@ class CostCounter(TorchDispatchMode):
             _nbytes(t) for t in outs if id(t) not in seen)
 
 
-def analyze(fn, *args, device_type: Optional[str] = None, **kwargs):
+def analyze(fn, *args, **kwargs):
     """Run ``fn(*args, **kwargs)`` under a :class:`CostCounter`; returns
     (its result dict, ``fn``'s output)."""
-    with CostCounter(device_type) as c:
+    with CostCounter() as c:
         out = fn(*args, **kwargs)
     return c.result(), out

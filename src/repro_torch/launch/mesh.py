@@ -25,25 +25,23 @@ from __future__ import annotations
 __all__ = ["make_production_mesh", "batch_axes", "make_debug_mesh"]
 
 
-def make_production_mesh(*, multi_pod: bool = False,
-                         device_type: str = "cuda"):
+def make_production_mesh(*, multi_pod: bool = False):
     """The (16, 16) ("data", "model") mesh, or with ``multi_pod`` the
     (2, 16, 16) ("pod", "data", "model") mesh, over the default process
     group (which must hold 256 or 512 ranks)."""
     from torch.distributed.device_mesh import init_device_mesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
 
 
 def batch_axes(multi_pod: bool = False):
     return ("pod", "data") if multi_pod else ("data",)
 
 
-def make_debug_mesh(data: int = 2, model: int = 2,
-                    device_type: str = "cpu"):
+def make_debug_mesh(data: int = 2, model: int = 2):
     """A small ("data", "model") mesh for CPU multi-process tests over the
     default process group (``gloo``, ``data * model`` ranks)."""
     from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, (data, model),
+    return init_device_mesh("cpu", (data, model),
                             mesh_dim_names=("data", "model"))
