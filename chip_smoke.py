@@ -3,8 +3,9 @@
 
 It drives the port's paths: the codec round trip with its indexed store,
 serving services, network front end and scale-out encode (phases 3-17),
-the LM serve path (phases 18-20), the LM trainer (phase 21) and the dry
-run's cost counter (phase 22).
+the LM serve path (phases 18-20), the LM trainer (phase 21), the dry
+run's cost counter (phase 22) and the user entry points (phase 23: the
+examples and the KS cross-check).
 
 Run from the root of a checkout, with no arguments:
 
@@ -284,8 +285,23 @@ Phases, each fatal on failure (no failure is caught):
               card's allocation grew by within 512 B a tensor; and one
               train step of granite-moe-1b-a400m at 2 of 24 layers, 8 x
               128 tokens, 2 microbatches, meta against the card: FLOPs
-              and bytes equal.
-23. timing -- each kernel at a main-path shape against its plain version
+              and bytes equal.  (c) ``python -m
+              repro_torch.launch.reanalyze`` over the six records and
+              their op logs: every rewritten field equal to what the
+              trace wrote.
+23. examples -- the user entry points as a user runs them, each in its
+              own process, all at once on the card: the five
+              ``examples_torch/*.py`` (quickstart at its own size, the
+              others at small sizes; ``serve_lm.py``
+              for rwkv6-3b, its default, and for granite-3-8b's SMOKE
+              config, which runs K4; ``train_lm.py`` with ``--gradcomp
+              --inject-crash``) and ``python -m
+              repro_torch.launch.ks_crosscheck`` on cuda.  Each exits 0
+              and prints its own verdict (byte-identical wire bytes, the
+              restore, tokens in the vocabulary, PASS); each reports the
+              K1/K2/K3/K4 launches of its process, added to the kernels
+              line.
+24. timing -- each kernel at a main-path shape against its plain version
               (equal, K4 within 1e-5, else fatal), its bound and (K2)
               ``torch.cumsum``, (K4) ``scaled_dot_product_attention``; K1
               also on a MAG-shaped feed that turns the dictionary over and,
@@ -511,6 +527,49 @@ DRYRUN_SMOKE = (("granite-3-8b", "train_4k", "multi"),
 DRYRUN_FULL = (("granite-3-8b", "decode_32k", "single"),
                ("gemma3-27b", "long_500k", "multi"))
 DRYRUN_TIMEOUT = 300
+# [examples] (23.): each entry point in its own process, all at once
+# (quickstart at its one size, the others small); (name, argv after ``python``, the kernels it must launch,
+# a line its output must hold; none may print ": False")
+EXAMPLES = (
+    ("quickstart", ["examples_torch/quickstart.py"], ("encode_step",),
+     "[minmax]   big jumps"),
+    ("stream_compress", ["examples_torch/stream_compress.py", "--channels",
+                         "16", "--samples", "8192"],
+     ("encode_step",), "decode identically to one-shot encode"),
+    ("serve_frontend", ["examples_torch/serve_frontend.py", "--tenants", "2",
+                        "--samples", "8192"],
+     ("encode_step",), "byte-identical to the local session: True"),
+    ("serve_lm rwkv6-3b", ["examples_torch/serve_lm.py", "--gen", "16"],
+     (), "in [0, 128): True"),
+    ("serve_lm granite-3-8b", ["examples_torch/serve_lm.py", "--arch",
+                               "granite-3-8b", "--gen", "16"],
+     ("flash_decode",), "in [0, 128): True"),
+    ("train_lm", ["examples_torch/train_lm.py", "--steps", "16", "--batch",
+                  "4", "--seq", "64", "--gradcomp", "--inject-crash", "6"],
+     ("encode_step",), "'event': 'restore'"),
+    ("ks_crosscheck", ["-m", "repro_torch.launch.ks_crosscheck"], (),
+     "ks_crosscheck (cuda): PASS"),
+)
+EXAMPLES_TIMEOUT = 300
+# runs an entry point as ``python <argv>`` would, then prints the launch
+# counts of the kernels in its process
+EXAMPLE_RUNNER = """
+import json, runpy, sys
+argv = sys.argv[1:]
+try:
+    if argv[0] == "-m":
+        sys.argv = argv[1:]
+        runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+    else:
+        sys.argv = argv
+        runpy.run_path(argv[0], run_name="__main__")
+finally:
+    from repro_torch.kernels import (dict_match, encode_step, flash_decode,
+                                     seq_cumsum)
+    print("LAUNCHES " + json.dumps({m.__name__.rsplit(".", 1)[1]: m.launches
+          for m in (encode_step, seq_cumsum, dict_match, flash_decode)}),
+          flush=True)
+"""
 DRYRUN_TRAIN_LAYERS = 2
 # the caching allocator rounds each allocation up to 512 bytes
 ALLOC_ROUND = 512
@@ -3995,7 +4054,7 @@ def _dryrun_in(torch, dev, card, tmp, t_start):
     try:
         for smoke, cells in ((True, DRYRUN_SMOKE), (False, DRYRUN_FULL)):
             for arch, shape, mesh in cells:
-                out = tmp / str(len(runs))
+                out = tmp / "records"
                 log = tmp / f"{len(runs)}.log"
                 cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                        "--arch", arch, "--shape", shape, "--mesh", mesh,
@@ -4103,14 +4162,80 @@ def _dryrun_in(torch, dev, card, tmp, t_start):
                 f"bytes/chip {rec['bytes_per_chip']:.0f}, wire/chip "
                 f"{rec['collective_wire_bytes_per_chip']:.0f} B ({wire}); "
                 f"arguments {rec['memory_analysis']['argument_size_in_bytes']}"
-                f" B; replication {rec['replication']:.4f}; trace "
+                f" B; replication {rec['replication']}; trace "
                 f"{rec['trace_s']:.2f} s")
+
+        # (c) the records counted again from their op logs
+        out = tmp / "records"
+        before = {p.name: json.loads(p.read_text())
+                  for p in out.glob("*.json")}
+        ra = subprocess.run([sys.executable, "-m",
+                             "repro_torch.launch.reanalyze", str(out)],
+                            env=env, cwd=ROOT, capture_output=True,
+                            text=True, timeout=DRYRUN_TIMEOUT)
+        check(ra.returncode == 0, f"[dryrun] reanalyze: {ra.stderr[-2000:]}")
+        check(len(before) == len(runs)
+              and ra.stdout.count("reanalyzed") == len(runs),
+              f"[dryrun] reanalyze: {len(before)} records, {ra.stdout}")
+        for name, rec in before.items():
+            again = json.loads((out / name).read_text())
+            differ = {k: (v, again.get(k)) for k, v in rec.items()
+                      if again.get(k) != v}
+            check(not differ, f"[dryrun] reanalyze {name}: {differ}")
+        say(f"[dryrun] reanalyze: {len(before)} records counted again from "
+            f"their op logs, every field equal")
     finally:
         for run in runs:
             if run[-1].poll() is None:
                 run[-1].kill()
                 run[-1].wait()
     return launches
+
+
+def phase_examples(card):
+    """The user entry points (23.), each in its own process on the card,
+    all at once: every one exits 0 with its verdict in its output and
+    launches the kernels it must.  Returns their launches by kernel."""
+    t_start = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    try:
+        for name, argv, _, _ in EXAMPLES:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_RUNNER] + argv, env=env,
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        total = {"encode_step": 0, "seq_cumsum": 0, "dict_match": 0,
+                 "flash_decode": 0}
+        for (name, _, needs, verdict), proc in zip(EXAMPLES, procs):
+            left = EXAMPLES_TIMEOUT - (time.perf_counter() - t_start)
+            out, _ = proc.communicate(timeout=max(left, 1))
+            # a printed check that failed (wire bytes, round trip) reads
+            # ": False"
+            check(proc.returncode == 0 and verdict in out
+                  and ": False" not in out,
+                  f"[examples] {name}: exit {proc.returncode}, "
+                  f"{verdict!r} {'in' if verdict in out else 'not in'} its "
+                  f"output: {out[-3000:]}")
+            line = [ln for ln in out.splitlines()
+                    if ln.startswith("LAUNCHES ")][-1]
+            counts = json.loads(line[len("LAUNCHES "):])
+            for k in needs:
+                check(counts[k] > 0, f"[examples] {name}: {k} not launched")
+            for k, n in counts.items():
+                total[k] += n
+            lines = [ln for ln in out.splitlines()
+                     if not ln.startswith("LAUNCHES ")]
+            say(f"[examples] {name}: {lines[-1].strip()}; launches "
+                f"{json.dumps(counts)}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    say(f"[examples] phase {time.perf_counter() - t_start:.1f} s, launches "
+        f"{json.dumps(total)}; {card}")
+    return total
 
 
 def phase_timing(torch, dev, card, first_chunks, k2_reads):
@@ -4225,6 +4350,8 @@ def main() -> int:
     launches["flash_decode"] += phase_families(torch, dev, card)
     launches["encode_step"] += phase_train(torch, dev, card)
     launches["flash_decode"] += phase_dryrun(torch, dev, card)
+    for name, n in phase_examples(card).items():
+        launches[name] += n
     timed = phase_timing(torch, dev, card, first_chunks, k2_reads)
 
     def entry(name, source, replaces):

@@ -18,15 +18,23 @@ under the per-chip cost counter (``launch/hlo_cost.py``).  It records:
     traced with no mesh (1 where every chip does its own share)
 
 ``DTensor`` propagates layouts to spend the least communication, compute
-counted as free, and the port pins them only where the reference has
-constraint sites, so a train or prefill cell's per-chip FLOPs include
-compute that every chip repeats (``replication`` well above 1): they are
-what this program runs on a chip, not a chip's share of the step, and
-not a per-chip MFU numerator.
+counted as free.  Beside the reference's constraint sites the port pins
+the residual stream and its gradient after every sublayer and runs the
+attention core on each chip's heads (or queries, the rules' ``queries``
+axis, where the heads do not divide the model axis), so a train or
+prefill step's products stay split.  A decode cell still repeats K4 and
+the tied unembedding over the model axis where the kv heads or the
+table's rows do not divide it (``replication`` near 10): its per-chip
+FLOPs are what this program runs on a chip, not a chip's share.
 
 The reference's XLA-only keys (``xla_flops_body_once``,
-``xla_bytes_body_once``, ``compile_s``) and its ``.hlo.zst`` have no
-counterpart: nothing is compiled.
+``xla_bytes_body_once``, ``compile_s``) have no counterpart: nothing is
+compiled.  In place of its ``<tag>.hlo.zst``, an ``ok`` cell writes
+``<tag>.ops.jsonl.gz`` beside ``<tag>.json``: every trace's counted
+operations (the probes and the traces with no mesh), from which
+``python -m repro_torch.launch.reanalyze DIR`` counts the record's FLOPs,
+bytes, collectives and ``replication`` again after a change to the
+counter's rules, without tracing.
 
 With ``cfg.scan_layers`` (the default) a cell traces each stage's pattern
 at one and two repeats (and a train step at two and three microbatches)
@@ -52,6 +60,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
 import os
 import time
@@ -68,7 +77,8 @@ from . import sharding as shd
 from .hlo_cost import CostCounter
 from .mesh import batch_axes, make_production_mesh
 
-__all__ = ["input_specs", "build_cell", "run_cell", "main"]
+__all__ = ["input_specs", "count_cell", "build_cell", "run_cell", "OpLog",
+           "main"]
 
 
 # ----------------------------------------------------------------- input specs
@@ -226,11 +236,12 @@ def _local_bytes(tree) -> int:
 # ------------------------------------------------------------------ tracing
 
 def _trace(cfg: ModelConfig, shape: ShapeSpec, mesh, baxes, batch: int,
-           microbatches: int) -> Dict[str, Any]:
+           microbatches: int, log=None) -> Dict[str, Any]:
     """Run one cell's step on meta shards of ``cfg`` (at global batch
     ``batch``) under the cost counter; returns its counts and the local
     bytes of its arguments and outputs.  With ``mesh`` None, the whole
-    step on plain meta tensors."""
+    step on plain meta tensors.  ``log``: a list that gets the counted
+    events (``hlo_cost.op_event``)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from ..models import lm
@@ -274,7 +285,7 @@ def _trace(cfg: ModelConfig, shape: ShapeSpec, mesh, baxes, batch: int,
     set_sharding_rules(None if mesh is None
                        else shd.activation_rules(cfg, mesh, baxes))
     try:
-        with implicit_replication(), CostCounter() as counter:
+        with implicit_replication(), CostCounter(log=log) as counter:
             out = step(*args)
     finally:
         set_sharding_rules(None)
@@ -360,13 +371,11 @@ def _combine(points: List[Tuple[Tuple[int, ...], Dict[str, Fraction]]],
             for k in keys}
 
 
-def count_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, baxes,
+def _plan_cell(cfg: ModelConfig, shape: ShapeSpec,
                microbatches: int = 0) -> Dict[str, Any]:
-    """The per-chip counts of one cell (with ``mesh`` None, of the whole
-    step): with ``cfg.scan_layers``, traced at the :func:`_probes` (and,
-    for a train step of more than 3 microbatches, at 2 and 3 microbatches
-    of the full step's microbatch size) and extrapolated; otherwise traced
-    whole."""
+    """What :func:`count_cell` traces: the full repeat vector, the
+    microbatches of the step, the microbatch counts traced, the traced
+    configs (repeat vector, config) and the microbatch size."""
     mb = 1
     if shape.kind == "train":
         mb = microbatches or cfg.train_microbatches
@@ -374,26 +383,59 @@ def count_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, baxes,
             mb //= 2
     _, full = _plan(cfg)
     if not cfg.scan_layers:
-        flat = _flat(_trace(cfg, shape, mesh, baxes, shape.global_batch, mb))
-        return _unflat(flat)
-    probes = _probes(cfg)
-    size = shape.global_batch // mb
+        return {"full": tuple(full), "mb": mb, "m_counts": (mb,),
+                "probes": [(tuple(full), cfg)], "size": shape.global_batch
+                // mb}
     # one microbatch differs from several (the batch is laid out for the
     # microbatches only when there are some): extrapolate from 2 and 3
-    m_counts = (2, 3) if shape.kind == "train" and mb > 3 else (mb,)
-    per_m = {}
-    for m in m_counts:
-        points = [(v, _flat(_trace(c, shape, mesh, baxes, size * m, m)))
-                  for v, c in probes]
-        per_m[m] = _combine(points, tuple(full))
-    if len(m_counts) == 1:
-        return _unflat(per_m[m_counts[0]])
+    return {"full": tuple(full), "mb": mb,
+            "m_counts": (2, 3) if shape.kind == "train" and mb > 3 else (mb,),
+            "probes": _probes(cfg), "size": shape.global_batch // mb}
+
+
+def _extrapolate(traces: List[Tuple[Tuple[int, ...], int,
+                                    Dict[str, Fraction]]],
+                 full: Tuple[int, ...], mb: int) -> Dict[str, Any]:
+    """The full step's counts from its traces (repeat vector, microbatch
+    count, flat counts): affine in the repeats at each microbatch count,
+    then c(m) = c(2) + (m - 2) * (c(3) - c(2)) where two were traced."""
+    per_m: Dict[int, Dict[str, Fraction]] = {}
+    for m in dict.fromkeys(m for _, m, _ in traces):
+        per_m[m] = _combine([(v, f) for v, mm, f in traces if mm == m],
+                            full)
+    if len(per_m) == 1:
+        return _unflat(next(iter(per_m.values())))
     two, three = per_m[2], per_m[3]
     z = Fraction(0)
-    # c(m) = c(2) + (m - 2) * (c(3) - c(2)) for m >= 2
     return _unflat({k: two.get(k, z) + (mb - 2) * (three.get(k, z)
                                                   - two.get(k, z))
                     for k in set(two) | set(three)})
+
+
+def count_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, baxes,
+               microbatches: int = 0, log=None) -> Dict[str, Any]:
+    """The per-chip counts of one cell (with ``mesh`` None, of the whole
+    step): with ``cfg.scan_layers``, traced at the :func:`_probes` (and,
+    for a train step of more than 3 microbatches, at 2 and 3 microbatches
+    of the full step's microbatch size) and extrapolated; otherwise traced
+    whole.  ``log`` (anything with ``append``, e.g. :class:`OpLog`) gets
+    each trace's events, then a line that closes them, ``{"trace":
+    {"mesh", "repeats", "microbatches", "full", "mb", argument and output
+    bytes}}`` -- what ``launch/reanalyze.py`` counts again."""
+    plan = _plan_cell(cfg, shape, microbatches)
+    traces = []
+    for m in plan["m_counts"]:
+        for v, c in plan["probes"]:
+            res = _trace(c, shape, mesh, baxes, plan["size"] * m, m, log)
+            traces.append((v, m, _flat(res)))
+            if log is not None:
+                log.append({"trace": {
+                    "mesh": mesh is not None, "repeats": list(v),
+                    "microbatches": m, "full": list(plan["full"]),
+                    "mb": plan["mb"],
+                    "argument_size_in_bytes": res["argument_size_in_bytes"],
+                    "output_size_in_bytes": res["output_size_in_bytes"]}})
+    return _extrapolate(traces, plan["full"], plan["mb"])
 
 
 def _unflat(flat: Dict[str, Fraction]) -> Dict[str, Any]:
@@ -420,18 +462,20 @@ def _unflat(flat: Dict[str, Fraction]) -> Dict[str, Any]:
 
 def build_cell(arch: str, shape_name: str, multi_pod: bool,
                microbatches: int = 0, cfg_override=None,
-               smoke: bool = False) -> Tuple[Dict[str, Any], dict]:
+               smoke: bool = False, log=None) -> Tuple[Dict[str, Any], dict]:
     """(the cell's counts, its metadata) for one cell.  ``smoke=True``
     swaps in the reduced config (same family and stage plan) -- CI's check
-    of the whole path on the production mesh."""
+    of the whole path on the production mesh.  ``log``: gets the traces'
+    events and closing lines (:func:`count_cell`), the mesh's first, then
+    those with no mesh."""
     cfg = cfg_override or get_config(arch, smoke=smoke)
     shape = SHAPES[shape_name]
     _fake_group(512 if multi_pod else 256)
     mesh = make_production_mesh(multi_pod=multi_pod)
     counts = count_cell(cfg, shape, mesh, batch_axes(multi_pod),
-                        microbatches)
+                        microbatches, log)
     chips = 512 if multi_pod else 256
-    whole = count_cell(cfg, shape, None, None, microbatches)["flops"]
+    whole = count_cell(cfg, shape, None, None, microbatches, log)["flops"]
     counts["replication"] = counts["flops"] * chips / whole
     meta = {"arch": arch, "shape": shape_name,
             "mesh": "2x16x16" if multi_pod else "16x16",
@@ -442,13 +486,32 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     return counts, meta
 
 
+class OpLog:
+    """A cell's traces (:func:`count_cell`'s ``log``) written as gzip'd
+    JSON lines as they come, so a train cell's millions of events never
+    sit in memory (stdlib ``gzip``: ``zstandard`` may be missing where the
+    dry run runs); ``launch/reanalyze.py`` counts them again."""
+
+    def __init__(self, path: str):
+        self._f = gzip.open(path, "wt", compresslevel=6)
+
+    def append(self, line: dict) -> None:
+        self._f.write(json.dumps(line, separators=(",", ":")) + "\n")
+
+    def close(self) -> None:
+        self._f.close()
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
              microbatches: int = 0, smoke: bool = False) -> dict:
     t0 = time.time()
     tag = f"{arch}_{shape_name}_{'multi' if multi_pod else 'single'}"
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, tag + ".ops.jsonl.gz")
+    log = OpLog(path + ".part")
     try:
         counts, rec = build_cell(arch, shape_name, multi_pod, microbatches,
-                                 smoke=smoke)
+                                 smoke=smoke, log=log)
         rec["flops_per_chip"] = counts["flops"]
         rec["bytes_per_chip"] = counts["bytes"]
         rec["collectives"] = counts["collectives"]
@@ -465,7 +528,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
                "mesh": "2x16x16" if multi_pod else "16x16",
                "status": "fail", "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc(limit=-12)}
-    os.makedirs(out_dir, exist_ok=True)
+    finally:
+        log.close()
+    if rec["status"] == "ok":
+        os.replace(path + ".part", path)
+    else:
+        os.remove(path + ".part")
     with open(os.path.join(out_dir, tag + ".json"), "w") as f:
         json.dump(rec, f, indent=1)
     print(f"[{rec['status']}] {tag} (trace {rec.get('trace_s', 0):.1f}s) "

@@ -32,6 +32,11 @@ A hand-written kernel, which no dispatch mode sees, reports its reckoned
 cost itself through ``kernels._build.report_cost`` to every active counter
 (K4: ``kernels/flash_decode.py``), on the meta device and on the card
 alike, so a meta trace and a real step count the same thing.
+
+Each counted operation becomes an event (:func:`op_event`: plain JSON
+data) and :func:`event_cost` turns an event into its counts; the counter
+and ``launch/reanalyze.py`` (which counts a dry run's saved events again)
+share that one function.
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ from torch.utils.flop_counter import flop_registry
 
 from ..kernels import _build
 
-__all__ = ["CostCounter", "ring_wire_bytes", "analyze"]
+__all__ = ["CostCounter", "Tally", "op_event", "event_cost",
+           "ring_wire_bytes", "analyze"]
 
 aten = torch.ops.aten
 
@@ -75,6 +81,7 @@ _COLLECTIVES = {
     "permute_tensor": ("collective-permute", "in"),
 }
 _WAITS = {"wait_tensor", "_wrap_tensor_autograd"}
+_COLL_NS = ("_c10d_functional", "_dtensor", "c10d_functional")
 
 
 def ring_wire_bytes(kind: str, size: float, n: int) -> float:
@@ -95,13 +102,159 @@ def ring_wire_bytes(kind: str, size: float, n: int) -> float:
     raise ValueError(f"unknown collective kind {kind!r}")
 
 
-def _nbytes(t) -> int:
-    return t.numel() * t.element_size()
-
-
 def _group_size(name) -> int:
     from torch.distributed.distributed_c10d import _resolve_process_group
     return _resolve_process_group(name).size()
+
+
+# ------------------------------------------------------------------ events
+# An event is one counted operation as plain JSON-able data: the op's name;
+# its arguments with each tensor replaced by {"t": shape, "d": dtype};
+# its tensor outputs the same way, each flagged when it is one of the
+# inputs (an in-place result); a collective's group size; or a kernel's
+# reckoned cost ({"op": "report_cost", "flops", "bytes"}).  ``event_cost``
+# turns one into counts: the trace and ``launch/reanalyze.py`` share it.
+
+def _enc(a):
+    if isinstance(a, torch.Tensor):
+        return {"t": list(a.shape), "d": str(a.dtype).replace("torch.", "")}
+    if isinstance(a, (list, tuple)):
+        return [_enc(x) for x in a]
+    if isinstance(a, dict):
+        return {k: _enc(v) for k, v in a.items()}
+    if a is None or isinstance(a, (bool, int, float, str)):
+        return a
+    return repr(a)  # a dtype, device or layout: no rule reads it
+
+
+def _is_t(a) -> bool:
+    return isinstance(a, dict) and "t" in a and "d" in a
+
+
+def _tensors(a) -> list:
+    if _is_t(a):
+        return [a]
+    if isinstance(a, list):
+        return [t for x in a for t in _tensors(x)]
+    if isinstance(a, dict):
+        return [t for x in a.values() for t in _tensors(x)]
+    return []
+
+
+def _shapes(a):
+    """Tensors as their shapes, the arguments of a FLOP formula."""
+    if _is_t(a):
+        return torch.Size(a["t"])
+    if isinstance(a, list):
+        return [_shapes(x) for x in a]
+    if isinstance(a, dict):
+        return {k: _shapes(v) for k, v in a.items()}
+    return a
+
+
+def _numel(t) -> int:
+    n = 1
+    for d in t["t"]:
+        n *= d
+    return n
+
+
+def _itemsize(t) -> int:
+    return getattr(torch, t["d"]).itemsize
+
+
+def _nbytes(t) -> int:
+    return _numel(t) * _itemsize(t)
+
+
+def op_event(func, args, kwargs, outs) -> dict:
+    """The event of one aten operation on plain tensors."""
+    ins = {id(a) for a in tree_flatten((args, kwargs))[0]
+           if isinstance(a, torch.Tensor)}
+    ev = {"op": str(func), "args": _enc(list(args)),
+          "kwargs": _enc(dict(kwargs)), "outs": _enc(outs),
+          "alias": [id(o) in ins for o in outs]}
+    if func.namespace in _COLL_NS and func._overloadpacket.__name__ in \
+            _COLLECTIVES:
+        ev["group"] = _group_size(args[-1])
+    return ev
+
+
+
+def _func(name: str):
+    ns, op, overload = name.split(".")
+    return getattr(getattr(getattr(torch.ops, ns), op), overload)
+
+
+def event_cost(ev: dict) -> dict:
+    """An event's counts: ``flops``, ``bytes`` and, for a collective,
+    ``collective`` = (kind, wire bytes a chip sends under the ring
+    model)."""
+    if ev["op"] == "report_cost":
+        return {"flops": ev["flops"], "bytes": ev["bytes"]}
+    ns, name, _ = ev["op"].split(".")
+    args, kwargs, outs = ev["args"], ev["kwargs"], ev["outs"]
+    ins = _tensors([args, kwargs])
+    if ns in _COLL_NS:
+        if name in _WAITS:
+            return {"flops": 0, "bytes": 0}
+        if name not in _COLLECTIVES:
+            raise NotImplementedError(
+                f"CostCounter: no ring model for collective {ev['op']}")
+        kind, which = _COLLECTIVES[name]
+        size = sum(_nbytes(t) for t in (outs if which == "out" else ins[:1]))
+        return {"flops": 0,
+                "bytes": sum(_nbytes(t) for t in ins + outs),
+                "collective": (kind, ring_wire_bytes(kind, size,
+                                                     ev["group"]))}
+    func = _func(ev["op"])
+    packet = func._overloadpacket
+    flops = 0
+    if packet in flop_registry:
+        o = _shapes(outs)
+        flops = flop_registry[packet](*_shapes(args), **_shapes(kwargs),
+                                      out_val=o[0] if len(o) == 1 else o)
+    if func.is_view or packet in _FREE:
+        return {"flops": flops, "bytes": 0}
+    if packet in _GATHERS:
+        return {"flops": flops, "bytes": 2 * sum(_nbytes(t) for t in outs)}
+    if packet in _SCATTERS:
+        upd = args[_SCATTERS[packet]]
+        # a scalar scattered writes one element per index
+        return {"flops": flops,
+                "bytes": 2 * (_nbytes(upd) if _is_t(upd) else
+                              _numel(args[2]) * _itemsize(args[0]))}
+    return {"flops": flops,
+            "bytes": sum(_nbytes(t) for t in ins) + sum(
+                _nbytes(t) for t, a in zip(outs, ev["alias"]) if not a)}
+
+
+class Tally:
+    """Counts summed over events, in their order: ``flops``, ``bytes``
+    and ``collectives`` (kind -> count, wire bytes)."""
+
+    def __init__(self):
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.collectives: Dict[str, Dict[str, float]] = {}
+
+    def add_event(self, ev: dict) -> None:
+        c = event_cost(ev)
+        self.flops += c["flops"]
+        self.bytes += c["bytes"]
+        if "collective" in c:
+            kind, wire = c["collective"]
+            d = self.collectives.setdefault(kind, {"count": 0,
+                                                   "wire_bytes": 0.0})
+            d["count"] += 1
+            d["wire_bytes"] += wire
+
+    def result(self) -> dict:
+        return {"flops": self.flops, "bytes": self.bytes,
+                "collectives": {k: dict(v) for k, v in
+                                self.collectives.items()},
+                "collective_wire_bytes": sum(
+                    d["wire_bytes"] for d in self.collectives.values())}
 
 
 class CostCounter(TorchDispatchMode):
@@ -109,14 +262,19 @@ class CostCounter(TorchDispatchMode):
     ``with CostCounter() as c:``.  ``device_type`` (e.g. ``"cuda"``,
     ``"meta"``) restricts the count to operations on that device type (a
     host-side operation inside a card step, such as a random-state copy,
-    is then not counted); None counts every device."""
+    is then not counted); None counts every device.  ``log``: a list that
+    gets every counted event (``op_event``), in order."""
 
-    def __init__(self, device_type: Optional[str] = None):
+    def __init__(self, device_type: Optional[str] = None,
+                 log: Optional[list] = None):
         super().__init__()
         self.device_type = device_type
-        self.flops = 0.0
-        self.bytes = 0.0
-        self.collectives: Dict[str, Dict[str, float]] = {}
+        self.log = log
+        self.tally = Tally()
+
+    flops = property(lambda self: self.tally.flops)
+    bytes = property(lambda self: self.tally.bytes)
+    collectives = property(lambda self: self.tally.collectives)
 
     def __enter__(self):
         _build.cost_counters.append(self)
@@ -128,15 +286,15 @@ class CostCounter(TorchDispatchMode):
 
     def add(self, flops: float, nbytes: float) -> None:
         """A kernel's reckoned cost (``kernels._build.report_cost``)."""
-        self.flops += flops
-        self.bytes += nbytes
+        self._record({"op": "report_cost", "flops": flops, "bytes": nbytes})
 
     def result(self) -> dict:
-        return {"flops": self.flops, "bytes": self.bytes,
-                "collectives": {k: dict(v) for k, v in
-                                self.collectives.items()},
-                "collective_wire_bytes": sum(
-                    d["wire_bytes"] for d in self.collectives.values())}
+        return self.tally.result()
+
+    def _record(self, ev: dict) -> None:
+        self.tally.add_event(ev)
+        if self.log is not None:
+            self.log.append(ev)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -155,47 +313,8 @@ class CostCounter(TorchDispatchMode):
             dev = (ins or outs or [None])[0]
             if dev is None or dev.device.type != self.device_type:
                 return out
-        self._count(func, args, kwargs, ins, outs)
+        self._record(op_event(func, args, kwargs, outs))
         return out
-
-    def _count(self, func, args, kwargs, ins, outs) -> None:
-        packet = func._overloadpacket
-        ns = func.namespace
-        name = packet.__name__
-        if ns in ("_c10d_functional", "_dtensor", "c10d_functional"):
-            if name in _WAITS:
-                return
-            if name not in _COLLECTIVES:
-                raise NotImplementedError(
-                    f"CostCounter: no ring model for collective {func}")
-            kind, which = _COLLECTIVES[name]
-            size = sum(_nbytes(t) for t in (outs if which == "out" else
-                                            ins[:1]))
-            group = args[-1]
-            n = _group_size(group)
-            d = self.collectives.setdefault(kind, {"count": 0,
-                                                   "wire_bytes": 0.0})
-            d["count"] += 1
-            d["wire_bytes"] += ring_wire_bytes(kind, size, n)
-            self.bytes += sum(_nbytes(t) for t in ins + outs)
-            return
-        if packet in flop_registry:
-            self.flops += flop_registry[packet](
-                *args, **kwargs, out_val=outs[0] if len(outs) == 1 else outs)
-        if func.is_view or packet in _FREE:
-            return
-        if packet in _GATHERS:
-            self.bytes += 2 * sum(_nbytes(t) for t in outs)
-            return
-        if packet in _SCATTERS:
-            upd = args[_SCATTERS[packet]]
-            # a scalar scattered writes one element per index
-            self.bytes += 2 * (_nbytes(upd) if isinstance(upd, torch.Tensor)
-                               else args[2].numel() * args[0].element_size())
-            return
-        seen = {id(t) for t in ins}
-        self.bytes += sum(_nbytes(t) for t in ins) + sum(
-            _nbytes(t) for t in outs if id(t) not in seen)
 
 
 def analyze(fn, *args, **kwargs):

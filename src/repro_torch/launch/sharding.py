@@ -226,6 +226,9 @@ def activation_rules(cfg: ModelConfig, mesh, baxes) -> dict:
         # expert-FFN dim takes the model axis only when experts don't (TP
         # inside experts vs EP across them -- never both on one tensor)
         "moe_ff": None if ep else ("model" if cfg.d_ff % tp == 0 else None),
+        # the port's own axis: the attention core's queries take the model
+        # axis where the heads do not divide it (models/attention.py:_attend)
+        "queries": None if cfg.num_heads % tp == 0 else "model",
     }
 
 

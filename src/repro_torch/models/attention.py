@@ -28,6 +28,7 @@ the whole 2.68 GB cache each step.  ``KVCache.length`` is a Python int
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from ..kernels.flash_decode import NEG_INF, flash_decode, flash_decode_torch
-from .common import ModelConfig, dense_init, logical
+from .common import ModelConfig, dense_init, logical, shard_local
 
 __all__ = ["rope", "rope_angles", "init_attention", "attention",
            "cross_attention", "KVCache", "init_kv_cache", "ring_valid",
@@ -210,27 +211,78 @@ def _repeat_kv(x, h: int):
     return torch.repeat_interleave(x, h // kvh, dim=2)
 
 
+def _heads(y, n: int, hd: int, axis: str):
+    """A projection's output (B, S, n*hd) as (B, S, n, hd), laid out by the
+    rules' ``axis`` (``"heads"`` or ``"kv_heads"``).  The flat output is
+    pinned first: where the rules do not split the heads over the model
+    axis it is gathered whole, since a shard of the flat dim may end
+    inside a head, which ``DTensor`` cannot view as heads."""
+    B, S, _ = y.shape
+    y = logical(y, "batch", None, axis).reshape(B, S, n, hd)
+    return logical(y, "batch", None, axis, None)
+
+
+def _merged(o):
+    """The core's output (B, S, H, hd) as (B, S, H*hd) for ``wo``, pinned
+    with its gradient by the core's heads or queries (a no-op going
+    forward): the gradient that ``wo``'s product returns is split over
+    the flat dim, which ``DTensor`` cannot view as heads where a shard
+    ends inside a head."""
+    B, S, h, hd = o.shape
+    return logical(o.reshape(B, S, h * hd), "batch", "queries", "heads",
+                   grad=True)
+
+
+def _split(x, dim: int) -> bool:
+    """Whether ``x`` is a ``DTensor`` split along ``dim``."""
+    return any(p.is_shard(dim) for p in getattr(x, "placements", ()))
+
+
+def _attend(core, q, k, v, q_pos, h: int):
+    """``core(q, k, v, q_pos)`` (the attention core, (B,S,H,hd) out) with k
+    and v repeated to the ``h`` query heads.  With sharding rules, each
+    chip runs the core on its own share (``shard_local``): its heads, with
+    k and v laid out alike, where the rules split the heads; else its
+    queries (and their positions) where the rules split them (the
+    ``"queries"`` axis), against k and v whole.  Without rules, or where
+    neither is split, ``DTensor`` lays the core out."""
+    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    q = logical(q, "batch", None, "heads", None)
+    if _split(q, 2):
+        k, v = (logical(t, "batch", None, "heads", None) for t in (k, v))
+        return shard_local(lambda q, k, v: core(q, k, v, q_pos), q, k, v)
+    q = logical(q, "batch", "queries", None, None)
+    if not _split(q, 1):
+        return core(q, k, v, q_pos)
+    k, v = (logical(t, "batch", None, None, None) for t in (k, v))
+    mesh = q.device_mesh
+    axis = next(i for i, p in enumerate(q.placements) if p.is_shard(1))
+    mine = q_pos.chunk(mesh.size(axis))[mesh.get_coordinate()[axis]]
+    from torch.distributed.tensor import Partial
+    summed = [Partial() if i == axis else p
+              for i, p in enumerate(k.placements)]
+    return shard_local(lambda q, k, v: core(q, k, v, mine), q, k, v,
+                       grad_placements=[None, summed, summed])
+
+
 def attention(p, x, cfg: ModelConfig, *, causal=True, window=None,
               positions=None, use_rope=True):
     """Self-attention over x (B,S,d) for prefill (the forward path)."""
     B, S, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, h, hd)
-    k = (x @ p["wk"].to(dt)).reshape(B, S, kvh, hd)
-    v = (x @ p["wv"].to(dt)).reshape(B, S, kvh, hd)
-    q = logical(q, "batch", None, "heads", None)
-    k = logical(k, "batch", None, "kv_heads", None)
-    v = logical(v, "batch", None, "kv_heads", None)
+    q = _heads(x @ p["wq"].to(dt), h, hd, "heads")
+    k = _heads(x @ p["wk"].to(dt), kvh, hd, "kv_heads")
+    v = _heads(x @ p["wv"].to(dt), kvh, hd, "kv_heads")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
-    o = _flash(q, k, v, positions, positions, causal=causal, window=window,
-               chunk=cfg.attn_chunk)
-    return o.reshape(B, S, h * hd) @ p["wo"].to(dt)
+    o = _attend(functools.partial(
+        _flash, kv_pos=positions, causal=causal, window=window,
+        chunk=cfg.attn_chunk), q, k, v, positions, h)
+    return _merged(o) @ p["wo"].to(dt)
 
 
 def cross_attention(p, x, memory, cfg: ModelConfig):
@@ -242,15 +294,15 @@ def cross_attention(p, x, memory, cfg: ModelConfig):
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     dt = x.dtype
     mt = torch.promote_types(memory.dtype, dt)
-    q = (x @ p["wq"].to(dt)).reshape(B, S, h, hd)
-    k = (memory.to(mt) @ p["wk"].to(mt)).reshape(B, M, kvh, hd)
-    v = (memory.to(mt) @ p["wv"].to(mt)).reshape(B, M, kvh, hd)
-    k, v = _repeat_kv(k, h), _repeat_kv(v, h)
+    q = _heads(x @ p["wq"].to(dt), h, hd, "heads")
+    k = _heads(memory.to(mt) @ p["wk"].to(mt), kvh, hd, "kv_heads")
+    v = _heads(memory.to(mt) @ p["wv"].to(mt), kvh, hd, "kv_heads")
     qp = torch.arange(S, dtype=torch.int32, device=x.device)
     kp = torch.arange(M, dtype=torch.int32, device=x.device)
-    o = _flash(q, k, v, qp, kp, causal=False, window=None,
-               chunk=cfg.attn_chunk)
-    return o.reshape(B, S, h * hd) @ p["wo"].to(dt)
+    o = _attend(functools.partial(
+        _flash, kv_pos=kp, causal=False, window=None,
+        chunk=cfg.attn_chunk), q, k, v, qp, h)
+    return _merged(o) @ p["wo"].to(dt)
 
 
 # --------------------------------------------------------------- decode path

@@ -24,8 +24,8 @@ from typing import Any, Optional
 import torch
 
 __all__ = ["ModelConfig", "dense_init", "set_sharding_rules",
-           "get_sharding_rules", "logical", "batch_local", "unstacked",
-           "replicated"]
+           "get_sharding_rules", "logical", "batch_local", "shard_local",
+           "unstacked", "replicated"]
 
 
 @dataclass(frozen=True)
@@ -155,18 +155,19 @@ def get_sharding_rules() -> Optional[dict]:
     return _RULES
 
 
-def logical(x, *axes: Optional[str]):
+def logical(x, *axes: Optional[str], grad: bool = False):
     """Constrain ``x``'s layout by logical axis names, one a dim (None:
     replicated).  Without rules, ``x`` itself.  With rules, a ``DTensor``
     is redistributed to the placements the rules give its mesh (a mesh
     axis that does not divide its dim is dropped, as the sharding policy
-    drops it); a plain tensor is returned as it is."""
+    drops it); a plain tensor is returned as it is.  ``grad=True`` lays
+    the gradient out alike (:class:`_Pin`)."""
     if _RULES is None:
         return x
-    return _constrain(x, axes, _RULES)
+    return _constrain(x, axes, _RULES, grad)
 
 
-def _constrain(x, axes, rules):
+def _constrain(x, axes, rules, grad):
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(x, DTensor):
         return x
@@ -184,9 +185,34 @@ def _constrain(x, axes, rules):
             continue
         for a in mesh_axes:
             placements[names.index(a)] = Shard(dim)
-    if tuple(placements) == tuple(x.placements):
+    placements = tuple(placements)
+    if grad and x.requires_grad and torch.is_grad_enabled():
+        return _Pin.apply(x, placements)
+    if placements == tuple(x.placements):
         return x
     return x.redistribute(mesh, placements)
+
+
+class _Pin(torch.autograd.Function):
+    """A ``DTensor`` and its gradient laid out alike (GSPMD transposes a
+    sharding constraint into the same constraint on the cotangent): the
+    value redistributed to ``placements`` going forward, the gradient
+    going back -- a pending sum reduced there, as the reference's
+    partitioner reduces it, instead of meeting the next product and
+    making it gather its weights."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        if placements == tuple(x.placements):
+            return x
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) == ctx.placements:
+            return grad, None
+        return grad.redistribute(grad.device_mesh, ctx.placements), None
 
 
 def batch_local(fn, *args):
@@ -212,9 +238,36 @@ def batch_local(fn, *args):
         for a in axes:
             placements[names.index(a)] = Shard(0)
     placements = tuple(placements)
-    local = [a.redistribute(mesh, placements).to_local()
-             if isinstance(a, DTensor) else a for a in args]
-    out = fn(*local)
+    return _on_shards(fn, [a.redistribute(mesh, placements).to_local()
+                           if isinstance(a, DTensor) else a for a in args],
+                      mesh, placements)
+
+
+def shard_local(fn, *args, grad_placements=None):
+    """``fn(*args)`` on each chip's shards of ``DTensor`` arguments; plain
+    tensors: ``fn(*args)``.  ``fn`` runs on the local shards and its
+    tensor outputs are ``DTensor``s laid out as the first ``DTensor``
+    argument.  For a computation independent along every dim that its
+    output is split on: the attention core, laid out by batch and heads
+    (or by batch and queries), whose products ``DTensor`` would run on
+    every head, since they flatten the two split dims into one.
+    ``grad_placements``: one entry an argument, the layout of the gradient
+    of its local shard where it is not the argument's own (a pending sum
+    for a replicated operand that each chip reads whole)."""
+    from torch.distributed.tensor import DTensor
+    tensors = [a for a in args if isinstance(a, DTensor)]
+    if not tensors:
+        return fn(*args)
+    mesh, placements = tensors[0].device_mesh, tuple(tensors[0].placements)
+    grads = grad_placements or [None] * len(args)
+    return _on_shards(fn, [a.to_local(grad_placements=g)
+                           if isinstance(a, DTensor) else a
+                           for a, g in zip(args, grads)], mesh, placements)
+
+
+def _on_shards(fn, local_args, mesh, placements):
+    from torch.distributed.tensor import DTensor
+    out = fn(*local_args)
 
     def wrap(t):
         return DTensor.from_local(t, mesh, placements, run_check=False)

@@ -194,37 +194,48 @@ def _layer_params(params, kind: str, p):
 # ------------------------------------------------------------------ forward
 
 
+def _residual(x, y):
+    """The residual stream after a sublayer, pinned replicated over the
+    model axis (a no-op without sharding rules): the next sublayer then
+    gets it whole, and ``DTensor`` shards that sublayer's products by its
+    weights instead of gathering the weights to meet a pending sum."""
+    return logical(x + y, "batch", None, None, grad=True)
+
+
 def _apply_layer(kind, p, x, cfg, memory):
     """One layer of the forward (prefill).  Returns (x, aux loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     eps = cfg.norm_eps
     if kind in ("attn", "attn_local", "attn_global", "enc_attn",
                 "shared_attn"):
-        x = x + attention(p["attn"], rmsnorm(p["norm1"], x, eps), cfg,
-                          causal=kind != "enc_attn",
-                          window=_kind_window(kind, cfg))
-        x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, eps), cfg)
+        x = _residual(x, attention(p["attn"], rmsnorm(p["norm1"], x, eps),
+                                   cfg, causal=kind != "enc_attn",
+                                   window=_kind_window(kind, cfg)))
+        x = _residual(x, mlp(p["mlp"], rmsnorm(p["norm2"], x, eps), cfg))
     elif kind == "moe_attn":
-        x = x + attention(p["attn"], rmsnorm(p["norm1"], x, eps), cfg,
-                          causal=True, window=_kind_window(kind, cfg))
+        x = _residual(x, attention(p["attn"], rmsnorm(p["norm1"], x, eps),
+                                   cfg, causal=True,
+                                   window=_kind_window(kind, cfg)))
         y, aux = moe_ffn(p["moe"], rmsnorm(p["norm2"], x, eps), cfg)
-        x = x + y
+        x = _residual(x, y)
     elif kind == "cross":
-        x = x + cross_attention(p["cross"], rmsnorm(p["norm1"], x, eps),
-                                memory, cfg)
-        x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, eps), cfg)
+        x = _residual(x, cross_attention(
+            p["cross"], rmsnorm(p["norm1"], x, eps), memory, cfg))
+        x = _residual(x, mlp(p["mlp"], rmsnorm(p["norm2"], x, eps), cfg))
     elif kind == "dec_attn":
-        x = x + attention(p["attn"], rmsnorm(p["norm1"], x, eps), cfg,
-                          causal=True)
-        x = x + cross_attention(p["cross"], rmsnorm(p["norm_x"], x, eps),
-                                memory, cfg)
-        x = x + mlp(p["mlp"], rmsnorm(p["norm2"], x, eps), cfg)
+        x = _residual(x, attention(p["attn"], rmsnorm(p["norm1"], x, eps),
+                                   cfg, causal=True))
+        x = _residual(x, cross_attention(
+            p["cross"], rmsnorm(p["norm_x"], x, eps), memory, cfg))
+        x = _residual(x, mlp(p["mlp"], rmsnorm(p["norm2"], x, eps), cfg))
     elif kind == "ssm":
-        x = x + ssm_forward(p["ssm"], rmsnorm(p["norm1"], x, eps), cfg)
+        x = _residual(x, ssm_forward(p["ssm"], rmsnorm(p["norm1"], x, eps),
+                                     cfg))
     elif kind == "rwkv":
-        x = x + time_mix_forward(p["tm"], rmsnorm(p["norm1"], x, eps), cfg)
-        x = x + channel_mix_forward(p["cm"], rmsnorm(p["norm2"], x, eps),
-                                    cfg)
+        x = _residual(x, time_mix_forward(p["tm"],
+                                          rmsnorm(p["norm1"], x, eps), cfg))
+        x = _residual(x, channel_mix_forward(
+            p["cm"], rmsnorm(p["norm2"], x, eps), cfg))
     else:
         raise ValueError(kind)
     return x, aux

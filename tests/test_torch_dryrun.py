@@ -6,7 +6,8 @@ The counter is exact on the reference test's two known programs
 cost are held to their formulas.  Tracing one and two repeats of each
 stage (and two and three microbatches) and extrapolating gives the same
 counts as tracing every layer (in a subprocess owning its fake process
-group).
+group).  The counted operations' log gives the same counts again
+(``launch/reanalyze.py``).
 The reference's four dry-run cells run through the port's command line in
 ``tests/test_torch_dryrun_cells.py``.
 """
@@ -94,6 +95,54 @@ def test_counter_byte_rules():
     with CostCounter() as c:
         t.index_put_((idx,), upd, accumulate=True)
     assert c.bytes == 2 * 4 * 16 * 4
+
+
+def test_events_count_again_through_json():
+    """Each counted operation's event, written as JSON and read back,
+    gives the trace's counts again (``hlo_cost.event_cost``): products,
+    views, in-place results, gathers, tensor and scalar scatters, K4's
+    reported cost."""
+    from repro_torch.launch.hlo_cost import Tally
+    t = torch.zeros(8, 16, device="meta")
+    idx = torch.zeros(4, dtype=torch.int64, device="meta")
+    upd = torch.zeros(4, 16, device="meta")
+    q = torch.empty(2, 4, 16, device="meta")
+    k = torch.empty(2, 8, 2, 16, dtype=torch.bfloat16, device="meta")
+    valid = torch.empty(8, dtype=torch.bool, device="meta").expand(2, 8)
+    log = []
+    with CostCounter(log=log) as c:
+        (t @ t.T).add_(1.0).view(64).sum()
+        t[idx]
+        t.index_put_((idx,), upd, accumulate=True)
+        t.scatter(0, idx[:, None].expand(4, 16), 2.0)
+        torch.bmm(q, q.transpose(1, 2))
+        fd.flash_decode(q, k, k, valid)
+    again = Tally()
+    for ev in json.loads(json.dumps(log)):
+        again.add_event(ev)
+    assert again.result() == c.result()
+    assert c.flops > 0 and c.bytes > 0
+
+
+def test_reanalyze_reproduces_a_cli_cell(tmp_path):
+    """A SMOKE cell written by the command line, its counted fields
+    zeroed, comes back from ``python -m repro_torch.launch.reanalyze``
+    exactly as the trace wrote it (from its ``.ops.jsonl.gz``)."""
+    out = _run(["-m", "repro_torch.launch.dryrun", "--smoke", "--arch",
+                "zamba2-1.2b", "--shape", "decode_32k", "--mesh", "single",
+                "--out", str(tmp_path)], timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    jf = tmp_path / "zamba2_1_2b_decode_32k_single.json"
+    assert (tmp_path / "zamba2_1_2b_decode_32k_single.ops.jsonl.gz").exists()
+    rec = json.loads(jf.read_text())
+    jf.write_text(json.dumps(dict(
+        rec, flops_per_chip=0.0, bytes_per_chip=0.0, collectives={},
+        collective_wire_bytes_per_chip=0.0, replication=0.0)))
+    ra = _run(["-m", "repro_torch.launch.reanalyze", str(tmp_path)],
+              timeout=120)
+    assert ra.returncode == 0, ra.stderr[-2000:]
+    assert "reanalyzed zamba2_1_2b_decode_32k_single.json" in ra.stdout
+    assert json.loads(jf.read_text()) == rec
 
 
 def test_counter_device_filter():

@@ -187,8 +187,13 @@ def test_activation_rules_equal_reference(mesh):
         for ep in (False, True):
             jcfg = jax_config(arch).replace(moe_expert_parallel=ep)
             cfg = get_config(arch).replace(moe_expert_parallel=ep)
-            assert shd.activation_rules(cfg, sizes, baxes) == \
-                jshd.activation_rules(jcfg, amesh, baxes)
+            rules = shd.activation_rules(cfg, sizes, baxes)
+            # the port's own axis (models/attention.py:_attend): the
+            # attention core's queries take the model axis exactly where
+            # the heads do not; every other rule is the reference's
+            assert rules.pop("queries") == (None if rules["heads"]
+                                            else "model")
+            assert rules == jshd.activation_rules(jcfg, amesh, baxes)
             if not cfg.num_experts:
                 continue
             # expert-parallel leaves follow the switch as in the reference
