@@ -29,7 +29,10 @@ reference's names: ``repro_decode_{host,device}_calls_total``,
 ``repro_decode_autotune_{probes,hits}_total`` and
 ``repro_decode_backend_calls_total{backend}``; :func:`decode_stats` is a
 dict view of the first four and the ``"auto"`` table.  The port has no
-host fallback, so it has no ``fallbacks`` counter.
+host fallback, so it has no ``fallbacks`` counter.  A device dispatch is
+also a ``decode.{perms,h2d,launch,d2h}`` span each, inside whatever span
+is open, with its ``repro_decode_step_seconds{step}`` child, and counts
+its blocks in ``repro_decode_rows_total{kind=requested|dispatched}``.
 """
 from __future__ import annotations
 
@@ -74,6 +77,20 @@ _backend_counters = {
                               labels={"backend": b})
     for b in BACKENDS
 }
+_step_seconds = {
+    step: obs.registry().histogram(
+        "repro_decode_step_seconds",
+        "device reconstruct wall time by step, each over the whole dispatch",
+        labels={"step": step})
+    for step in ("perms", "h2d", "launch", "d2h")
+}
+_rows = {
+    kind: obs.registry().counter(
+        "repro_decode_rows_total",
+        "device reconstruct blocks: requested, and dispatched after padding",
+        labels={"kind": kind})
+    for kind in ("requested", "dispatched")
+}
 
 
 def decode_stats() -> dict:
@@ -99,6 +116,8 @@ class DecodePlan:
     block's global position in its stream: std-mode hit permutations are
     keyed on ``(seed, block_idx)`` (:func:`hit_perms`).  ``no_perm``
     (error-bounded streams) pins std-mode hits to the stored row order.
+    ``requested`` is the real blocks among ``nb`` (:func:`pad_parts`'
+    plans hold padding too); ``None`` means all of them.
     """
 
     mode: int
@@ -113,6 +132,7 @@ class DecodePlan:
     seed: int = 0
     overwrite: Optional[np.ndarray] = None  # (nb,) bool, informational
     no_perm: bool = False
+    requested: Optional[int] = None
 
     @property
     def nb(self) -> int:
@@ -241,7 +261,7 @@ def pad_parts(mode: int, block_size: int, dtype, value_range,
         payloads=payloads, src=src.ravel(),
         bases=None if bases is None else bases.ravel(),
         is_hit=is_hit.ravel(), block_idx=block_idx.ravel(), seed=seed,
-        no_perm=no_perm)
+        no_perm=no_perm, requested=n_rows)
     return plan, nbm
 
 
@@ -287,42 +307,58 @@ def _padded(a: np.ndarray, n: int, fill, device: torch.device):
     return out
 
 
+def _step(step: str):
+    """Span ``decode.<step>`` and its ``repro_decode_step_seconds`` child
+    around one step of a device dispatch."""
+    return obs.span(f"decode.{step}", seconds=_step_seconds[step])
+
+
 def _run_device(plan: DecodePlan, backend: str,
                 device: torch.device) -> np.ndarray:
     """Gather, permutation apply, re-anchor, (delta) sequential cumsum and
-    wrap on ``device``; shapes padded to powers of two."""
+    wrap on ``device``; shapes padded to powers of two.  Each of its four
+    steps (the autotuner's probes' too) is a :func:`_step`: the host's
+    permutations, the copies in, the enqueue, and the copy out with the
+    wait for it."""
     from ..kernels.seq_cumsum import seq_cumsum, seq_cumsum_torch
 
     nb = plan.nb
     nbp, nrp = _pow2(nb), _pow2(len(plan.payloads) + 1)
-    payloads = _padded(plan.payloads, nrp, 0, device)
-    src = _padded(plan.src, nbp, nrp - 1, device)  # pads read a zero row
-    rows = payloads.index_select(0, src)
-    del payloads
-
-    def dev(a):
-        return torch.from_numpy(a).to(device)
-
-    if plan.mode == MODE_STD:
-        perm = np.broadcast_to(np.arange(plan.block_size, dtype=np.int64),
-                               (nbp, plan.block_size)).copy()
-        hit_pos = _perm_hits(plan)
-        if len(hit_pos):
-            perm[hit_pos] = hit_perms(plan.seed, plan.block_idx[hit_pos],
-                                      plan.block_size)
-        out = torch.gather(rows, 1, dev(perm))
-    else:
-        b = _padded(plan.bases, nbp, 0, device)[:, None]
-        if plan.mode == MODE_RESIDUAL:
-            t = rows
-        elif backend == "cuda":
-            t = seq_cumsum(rows)
+    std = plan.mode == MODE_STD
+    with _step("perms"):
+        perm = None
+        if std:
+            perm = np.broadcast_to(
+                np.arange(plan.block_size, dtype=np.int64),
+                (nbp, plan.block_size)).copy()
+            hit_pos = _perm_hits(plan)
+            if len(hit_pos):
+                perm[hit_pos] = hit_perms(plan.seed, plan.block_idx[hit_pos],
+                                          plan.block_size)
+    with _step("h2d"):
+        payloads = _padded(plan.payloads, nrp, 0, device)
+        src = _padded(plan.src, nbp, nrp - 1, device)  # pads read a zero row
+        if std:
+            perm = torch.from_numpy(perm).to(device)
         else:
-            t = seq_cumsum_torch(rows)
-        out = torch.cat([b, b + t], dim=1)
-        if plan.value_range is not None:
-            out = wrap_range(out, *plan.value_range)
-    return out[:nb].cpu().numpy()
+            b = _padded(plan.bases, nbp, 0, device)[:, None]
+    with _step("launch"):
+        rows = payloads.index_select(0, src)
+        del payloads
+        if std:
+            out = torch.gather(rows, 1, perm)
+        else:
+            if plan.mode == MODE_RESIDUAL:
+                t = rows
+            elif backend == "cuda":
+                t = seq_cumsum(rows)
+            else:
+                t = seq_cumsum_torch(rows)
+            out = torch.cat([b, b + t], dim=1)
+            if plan.value_range is not None:
+                out = wrap_range(out, *plan.value_range)
+    with _step("d2h"):
+        return out[:nb].cpu().numpy()
 
 
 # ------------------------------------------------------ measured autotuner
@@ -509,6 +545,9 @@ def reconstruct(plan: DecodePlan, backend: str = "cuda",
         out = _reconstruct_numpy(plan)
     else:
         out = _run_device(plan, backend, resolve_device(device))
+        _rows["requested"].inc(plan.nb if plan.requested is None
+                               else plan.requested)
+        _rows["dispatched"].inc(_pow2(plan.nb))
     _backend_counters[backend].inc()
     _stat_counters["host_calls" if backend == "numpy"
                    else "device_calls"].inc()

@@ -11,11 +11,16 @@ package's; metric names and labels are the reference's.
     obs.registry().counter("repro_encode_flushes_total").inc()
     with obs.span("encode.flush", attrs={"streams": 8}):
         ...
+    step = obs.registry().histogram("repro_encode_flush_step_seconds",
+                                    labels={"step": "stage"})
+    with obs.span("encode.stage", seconds=step):   # span + its duration
+        ...
     text = obs.to_prometheus()          # Prometheus exposition
     doc = obs.to_json()                 # JSON snapshot (metrics + spans)
 
 ``set_enabled(False)`` short-circuits every metric write (span recording
-is switched by ``tracer().enabled``).
+is switched by ``tracer().enabled``; a span's ``seconds=`` histogram
+still observes while the tracer is off).
 """
 from .metrics import (                                        # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry,

@@ -5,7 +5,9 @@
 through a thread-local stack (each thread has its own span stack, so
 pipeline worker threads nest correctly and independently), and appends
 the finished span to a bounded ring buffer -- old spans fall off, the
-tracer never grows without bound.
+tracer never grows without bound.  ``span(..., seconds=hist)`` also
+observes the body's duration into a histogram child, whether or not the
+tracer is recording.
 
 Two record kinds share the ring:
 
@@ -26,7 +28,10 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-from typing import Callable, Dict, List, Optional
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional
+
+if TYPE_CHECKING:  # pragma: no cover
+    from .metrics import Histogram
 
 __all__ = ["Span", "SpanTracer", "tracer", "span", "event"]
 
@@ -93,9 +98,19 @@ class SpanTracer:
                 self.remove_exporter(fn)
 
     @contextmanager
-    def span(self, name: str, attrs: Optional[Dict] = None):
+    def span(self, name: str, attrs: Optional[Dict] = None,
+             seconds: Optional["Histogram"] = None):
+        """Record ``name`` around the body.  ``seconds`` (a histogram
+        child) observes the body's duration on normal exit, from the same
+        two stamps as the span, and also while the tracer is disabled: the
+        span is switched by ``enabled``, the histogram by its registry."""
         if not self.enabled:
+            if seconds is None:
+                yield None
+                return
+            start = time.perf_counter()
             yield None
+            seconds.observe(time.perf_counter() - start)
             return
         stack = self._stack()
         parent_id = stack[-1] if stack else None
@@ -114,6 +129,8 @@ class SpanTracer:
             self._finish(Span(name, attrs, span_id, parent_id,
                               threading.current_thread().name, start, dur,
                               status, "span"))
+        if seconds is not None:
+            seconds.observe(dur)
 
     def event(self, name: str, attrs: Optional[Dict] = None) -> None:
         """Zero-duration structured record, nested under the current span
@@ -166,10 +183,12 @@ def tracer() -> SpanTracer:
     return _DEFAULT
 
 
-def span(name: str, attrs: Optional[Dict] = None):
+def span(name: str, attrs: Optional[Dict] = None,
+         seconds: Optional["Histogram"] = None):
     """``with obs.span("serve.plan", attrs={"seq": 3}): ...`` against the
-    default tracer."""
-    return _DEFAULT.span(name, attrs)
+    default tracer; ``seconds=`` also observes the body's duration into a
+    histogram child (:meth:`SpanTracer.span`)."""
+    return _DEFAULT.span(name, attrs, seconds)
 
 
 def event(name: str, attrs: Optional[Dict] = None) -> None:

@@ -100,6 +100,16 @@ _M_ENC_FLUSH_SECONDS = obs.registry().histogram(
 _M_ENC_FLUSH_BLOCKS = obs.registry().histogram(
     "repro_encode_flush_blocks", "blocks encoded per coalescer flush",
     buckets=tuple(float(1 << p) for p in range(0, 17, 2)))
+_M_ENC_FLUSH_STEP = {
+    step: obs.registry().histogram(
+        "repro_encode_flush_step_seconds",
+        "coalescer flush wall time by step, each over the whole flush",
+        labels={"step": step})
+    for step in ("take", "prepare", "stage", "h2d", "scan", "d2h", "commit")
+}
+_M_ENC_FLUSH_CELLS = obs.registry().counter(
+    "repro_encode_flush_cells_total",
+    "block cells of the coalescer's padded scans (slots x padded blocks)")
 _M_STREAMS_OPEN = {
     kind: obs.registry().gauge(
         "repro_encode_streams_open", "open encode streams",
@@ -108,27 +118,19 @@ _M_STREAMS_OPEN = {
 }
 
 
-class _Staged:
-    """Span ``serve.<stage>`` and the stage-latency histogram around one
-    pipeline stage body (the injected ``trace`` hook fires at stage start
-    only, so durations come from here)."""
+def _staged(stage: str, seq: int, **attrs):
+    """Span ``serve.<stage>`` (attrs ``seq`` and ``attrs``) around one
+    pipeline stage body; its duration goes into the stage-latency
+    histogram when the body returns."""
+    return obs.span(f"serve.{stage}", attrs={"seq": seq, **attrs},
+                    seconds=_M_STAGE_SECONDS[stage])
 
-    __slots__ = ("stage", "_span", "_t0")
 
-    def __init__(self, stage: str, seq: int, **attrs):
-        self.stage = stage
-        self._span = obs.span(f"serve.{stage}", attrs={"seq": seq, **attrs})
-
-    def __enter__(self):
-        self._span.__enter__()
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, exc_type, exc, tb):
-        if exc_type is None:
-            _M_STAGE_SECONDS[self.stage].observe(
-                time.perf_counter() - self._t0)
-        return self._span.__exit__(exc_type, exc, tb)
+def _step(step: str):
+    """Span ``encode.<step>`` inside ``encode.flush`` and its
+    ``repro_encode_flush_step_seconds`` child, around one step of a
+    coalescer flush taken over all of the flush's streams at once."""
+    return obs.span(f"encode.{step}", seconds=_M_ENC_FLUSH_STEP[step])
 
 
 class _PlannedStore(NamedTuple):
@@ -496,11 +498,14 @@ class StreamCoalescer:
     def _flush_impl(self, stream_ids: List[str]) -> Dict[str, bytes]:
         if self._adaptive:
             return self._flush_adaptive(stream_ids)
+        with _step("take"):
+            taken = self._take(stream_ids)
         prepared = {}
-        for sid, arr in self._take(stream_ids):
-            prep = self._sessions[sid].prepare(arr)
-            if prep is not None:
-                prepared[sid] = prep
+        with _step("prepare"):
+            for sid, arr in taken:
+                prep = self._sessions[sid].prepare(arr)
+                if prep is not None:
+                    prepared[sid] = prep
         if not prepared:
             return {}
 
@@ -508,12 +513,15 @@ class StreamCoalescer:
         n_lem = cdc._lem_n()
         _M_ENC_FLUSH_BLOCKS.observe(sum(p.nb for p in prepared.values()))
         nb_pad = self._nb_pad(prepared)
-        batch = np.zeros((self._capacity, nb_pad, n_lem), dtype=np.float32)
-        valid = np.zeros((self._capacity, nb_pad), dtype=bool)
-        for sid, prep in prepared.items():
-            slot = self._slots[sid]
-            batch[slot, :prep.nb] = prep.payloads[0]
-            valid[slot, :prep.nb] = True
+        _M_ENC_FLUSH_CELLS.inc(self._capacity * nb_pad)
+        with _step("stage"):
+            batch = np.zeros((self._capacity, nb_pad, n_lem),
+                             dtype=np.float32)
+            valid = np.zeros((self._capacity, nb_pad), dtype=bool)
+            for sid, prep in prepared.items():
+                slot = self._slots[sid]
+                batch[slot, :prep.nb] = prep.payloads[0]
+                valid[slot, :prep.nb] = True
 
         plan = self.plan
         # with a plan each shard copies its own slots to its device
@@ -537,62 +545,78 @@ class StreamCoalescer:
         # codec matcher overrides
         kw["matcher"] = cdc.matcher or (
             "fused" if cdc.backend == "cuda" else None)
-        bt = torch.as_tensor(batch, device=dev)
-        vt = torch.as_tensor(valid, device=dev)
         scan = (encode_decisions_batched if plan is None
                 else functools.partial(_planned_scan, plan))
-        (h, s, o), self._state = scan(bt, state=self._state, valid=vt, **kw)
-        h, s, o = (v.cpu().numpy() for v in (h, s, o))  # the one sync
+        with _step("h2d"):
+            bt = torch.as_tensor(batch, device=dev)
+            vt = torch.as_tensor(valid, device=dev)
+        with _step("scan"):
+            (h, s, o), self._state = scan(bt, state=self._state, valid=vt,
+                                          **kw)
+        with _step("d2h"):
+            h, s, o = (v.cpu().numpy() for v in (h, s, o))  # the one sync
 
-        out = {}
-        for sid, prep in prepared.items():
-            slot, nb = self._slots[sid], prep.nb
-            dec = (h[slot, :nb], s[slot, :nb], o[slot, :nb])
-            out[sid] = self._sessions[sid].commit(prep, [dec])[0]
+        with _step("commit"):
+            out = {}
+            for sid, prep in prepared.items():
+                slot, nb = self._slots[sid], prep.nb
+                dec = (h[slot, :nb], s[slot, :nb], o[slot, :nb])
+                out[sid] = self._sessions[sid].commit(prep, [dec])[0]
         return out
 
     def _flush_adaptive(self, stream_ids: List[str]) -> Dict[str, bytes]:
         """Adaptive flush: each stream runs its per-stream feed cycle
         (selector switch at the flush boundary, observe, prepare) and the
         decide is ONE ``MixedCohort`` scan over the padded cohort -- slots
-        carry per-stream mode, width and threshold as masked lanes."""
+        carry per-stream mode, width and threshold as masked lanes.  Its
+        steps are ``take``, ``prepare``, ``scan`` (the cohort's staging,
+        copies, scan and sync) and ``commit``."""
+        with _step("take"):
+            taken = self._take(stream_ids)
         prepared = {}
-        for sid, arr in self._take(stream_ids):
-            sess = self._sessions[sid]
-            # switches commit at the flush boundary (statistics through the
-            # previous flushes), as IdealemSession._feed_adaptive does
-            ev = sess._selectors[0].decide(sess._stats[0].blocks)
-            if ev is not None:
-                sess._apply_switch(0, ev)
-                if self._mixed is not None:
-                    self._mixed.reset_lane(self._slots[sid])
-            sess._selectors[0].observe(arr)
-            prep = sess.prepare(arr)
-            if prep is not None:
-                prepared[sid] = prep
+        with _step("prepare"):
+            for sid, arr in taken:
+                sess = self._sessions[sid]
+                # switches commit at the flush boundary (statistics through
+                # the previous flushes), as IdealemSession._feed_adaptive
+                # does
+                ev = sess._selectors[0].decide(sess._stats[0].blocks)
+                if ev is not None:
+                    sess._apply_switch(0, ev)
+                    if self._mixed is not None:
+                        self._mixed.reset_lane(self._slots[sid])
+                sess._selectors[0].observe(arr)
+                prep = sess.prepare(arr)
+                if prep is not None:
+                    prepared[sid] = prep
         if not prepared:
             return {}
 
         _M_ENC_FLUSH_BLOCKS.observe(sum(p.nb for p in prepared.values()))
-        if self._mixed is None:
-            cdc = self._codec
-            self._mixed = MixedCohort(
-                cdc.num_dict, self._capacity, rel_tol=float(cdc.rel_tol),
-                use_minmax=cdc.use_minmax, use_ks=cdc.use_ks,
-                error_bound=cdc.error_bound,
-                matcher=_mixed_matcher_name(cdc), device=cdc.torch_device,
-                plan=self.plan)
-        entries = []
-        for sid, prep in prepared.items():
-            sess = self._sessions[sid]
-            cdc = sess._codecs[0]
-            entries.append((self._slots[sid], np.asarray(prep.payloads[0]),
-                            float(sess._d_crit[0]), cdc.mode == "delta",
-                            cdc.error_bound is not None))
-        dec = self._mixed.decide(entries, nb_pad=self._nb_pad(prepared))
-        return {sid: self._sessions[sid].commit(
-                    prep, [dec[self._slots[sid]]])[0]
-                for sid, prep in prepared.items()}
+        nb_pad = self._nb_pad(prepared)
+        _M_ENC_FLUSH_CELLS.inc(self._capacity * nb_pad)
+        with _step("scan"):
+            if self._mixed is None:
+                cdc = self._codec
+                self._mixed = MixedCohort(
+                    cdc.num_dict, self._capacity, rel_tol=float(cdc.rel_tol),
+                    use_minmax=cdc.use_minmax, use_ks=cdc.use_ks,
+                    error_bound=cdc.error_bound,
+                    matcher=_mixed_matcher_name(cdc),
+                    device=cdc.torch_device, plan=self.plan)
+            entries = []
+            for sid, prep in prepared.items():
+                sess = self._sessions[sid]
+                cdc = sess._codecs[0]
+                entries.append((self._slots[sid],
+                                np.asarray(prep.payloads[0]),
+                                float(sess._d_crit[0]), cdc.mode == "delta",
+                                cdc.error_bound is not None))
+            dec = self._mixed.decide(entries, nb_pad=nb_pad)
+        with _step("commit"):
+            return {sid: self._sessions[sid].commit(
+                        prep, [dec[self._slots[sid]]])[0]
+                    for sid, prep in prepared.items()}
 
 
 class DecompressionService:
@@ -622,8 +646,9 @@ class DecompressionService:
     ``close()``) collects the rest.  A store that fails in any stage fails
     alone: its requests go to ``last_errors``, as do a group's requests
     when ``"auto"`` finds no exact backend for it.  ``executor`` (any object
-    with ``submit(fn, *args) -> future`` and ``shutdown()``) and ``trace``
-    (a ``(stage, flush_seq)`` callable) are injectable for tests.
+    with ``submit(fn, *args) -> future`` and ``shutdown()``) is injectable
+    for tests.  Each stage is a ``serve.<stage>`` span (attrs ``seq``,
+    the flush's number) with its ``repro_serve_stage_seconds`` child.
 
     ``backend`` defaults to ``"cuda"`` (the reference package's default is
     ``"auto"``); ``"auto"`` routes every dispatch to the measured-best
@@ -637,7 +662,6 @@ class DecompressionService:
                  clock: Optional[Callable[[], float]] = None,
                  backend: str = "cuda",
                  executor=None,
-                 trace: Optional[Callable[[str, int], None]] = None,
                  device=None):
         if backend != "auto" and backend not in decode_mod.BACKENDS:
             raise ValueError(f"unknown decode backend {backend!r}")
@@ -658,7 +682,6 @@ class DecompressionService:
             executor = (ThreadStageExecutor() if self.policy.pipeline_depth > 1
                         else SyncExecutor())
         self._pipe = StagePipeline(executor, self.policy.pipeline_depth)
-        self._trace = trace if trace is not None else (lambda stage, seq: None)
         self._flush_seq = 0
         self._closed = False
         # answers emitted outside a collection point (a quiesce before a
@@ -877,11 +900,10 @@ class DecompressionService:
 
     # --------------------------------------------------------- flush stages
     def _stage_plan(self, seq: int, pending) -> List[_PlannedStore]:
-        with _Staged("plan", seq, requests=len(pending)):
+        with _staged("plan", seq, requests=len(pending)):
             return self._plan_impl(seq, pending)
 
     def _plan_impl(self, seq: int, pending) -> List[_PlannedStore]:
-        self._trace("plan", seq)
         by_store: Dict[tuple, List[Tuple[str, int, int, int]]] = {}
         headers: Dict[Tuple[str, int], object] = {}  # per-flush header memo
         for rid, sid, channel, start, stop, _ts in pending:
@@ -917,12 +939,11 @@ class DecompressionService:
 
     def _stage_gather(self, seq: int,
                       planned: List[_PlannedStore]) -> List[_Unit]:
-        with _Staged("gather", seq, stores=len(planned)):
+        with _staged("gather", seq, stores=len(planned)):
             return self._gather_impl(seq, planned)
 
     def _gather_impl(self, seq: int,
                      planned: List[_PlannedStore]) -> List[_Unit]:
-        self._trace("gather", seq)
         pregroups: Dict[tuple, List[Tuple[str, int, object]]] = {}
         for ps in planned:
             try:
@@ -1003,11 +1024,10 @@ class DecompressionService:
         """Device stage: one engine dispatch per unit.  May run on the
         executor's worker thread, so it touches no shared service state:
         failures are captured per unit and accounted at emit."""
-        with _Staged("reconstruct", seq, units=len(units)):
+        with _staged("reconstruct", seq, units=len(units)):
             return self._reconstruct_impl(seq, units)
 
     def _reconstruct_impl(self, seq: int, units: List[_Unit]) -> list:
-        self._trace("reconstruct", seq)
         outcomes = []
         for u in units:
             try:
@@ -1021,12 +1041,11 @@ class DecompressionService:
 
     def _stage_emit(self, seq: int, units: List[_Unit], outcomes,
                     exc: Optional[BaseException]) -> Dict[str, np.ndarray]:
-        with _Staged("emit", seq, units=len(units)):
+        with _staged("emit", seq, units=len(units)):
             return self._emit_impl(seq, units, outcomes, exc)
 
     def _emit_impl(self, seq: int, units: List[_Unit], outcomes,
                    exc: Optional[BaseException]) -> Dict[str, np.ndarray]:
-        self._trace("emit", seq)
         out: Dict[str, np.ndarray] = {}
         if exc is not None:  # the whole reconstruct stage died
             outcomes = [(u, None, exc) for u in units]

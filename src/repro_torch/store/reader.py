@@ -31,6 +31,7 @@ host, and the tensor backends run their plain versions on
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +52,10 @@ from .container import Container
 _M_WALKS = obs.registry().counter(
     "repro_store_chunk_walks_total",
     "container chunk decision-byte walks (cache misses reach here)")
+# one observation a walk, and no span: a flush walks hundreds of chunks
+_M_WALK_SECONDS = obs.registry().histogram(
+    "repro_store_chunk_walk_seconds",
+    "container chunk decision-byte walk wall time")
 _M_RANGE_REQS = obs.registry().counter(
     "repro_store_range_requests_total",
     "range-decode requests (one per (channel, start, stop) tuple)")
@@ -94,6 +99,14 @@ def parse_chunk(store: Container, chunk: int) -> ParsedChunk:
     only has implicitly: the FIFO fill counter entering the segment and
     (elsewhere, via ``Container.snapshot``) the dictionary contents."""
     _M_WALKS.inc()
+    t0 = time.perf_counter()
+    try:
+        return _walk_chunk(store, chunk)
+    finally:
+        _M_WALK_SECONDS.observe(time.perf_counter() - t0)
+
+
+def _walk_chunk(store: Container, chunk: int) -> ParsedChunk:
     buf = memoryview(store.data)
     start = int(store._cols["offset"][chunk])
     hdr, off = stream_mod._unpack_header(buf, start)

@@ -107,23 +107,26 @@ def _corrupt_copy(packed: bytes) -> bytes:
 class LazyFuture:
     """Runs its stage only when collected."""
 
-    def __init__(self, fn, args, log, tag):
+    def __init__(self, fn, args, log, tag, executed_at):
         self._fn, self._args, self._log, self._tag = fn, args, log, tag
+        self._executed_at = executed_at
 
     def result(self):
         self._log.append(("execute", self._tag))
+        self._executed_at[self._tag] = time.perf_counter()
         return self._fn(*self._args)
 
 
 class LazyExecutor:
     def __init__(self, log):
         self.log = log
+        self.executed_at = {}   # submit number -> perf_counter() at execute
         self._n = 0
 
     def submit(self, fn, *args):
         self._n += 1
         self.log.append(("submit", self._n))
-        return LazyFuture(fn, args, self.log, self._n)
+        return LazyFuture(fn, args, self.log, self._n, self.executed_at)
 
     def shutdown(self):
         self.log.append(("shutdown", None))
@@ -340,12 +343,19 @@ def test_device_flush_splits_pathological_padding(backend):
 
 
 # ------------------------------------------------------------ the pipeline
+def _stage_starts(since: float) -> dict:
+    """``(stage, flush seq) -> start_s`` of the port's ``serve.<stage>``
+    spans begun after ``since``, read from the span ring."""
+    return {(r.name[len("serve."):], r.attrs["seq"]): r.start_s
+            for r in obs.tracer().records(kind="span")
+            if r.name.startswith("serve.") and r.start_s >= since}
+
+
 def test_plan_of_next_batch_runs_while_reconstruct_in_flight():
     packed, y = _prepped("std_D32")
-    log = []
-    svc = _port(max_batch_streams=2, pipeline_depth=2,
-                executor=LazyExecutor(log),
-                trace=lambda stage, seq: log.append((stage, seq)))
+    ex = LazyExecutor([])
+    since = time.perf_counter()
+    svc = _port(max_batch_streams=2, pipeline_depth=2, executor=ex)
     svc.attach("s", packed)
     assert svc.submit("a", "s", 0, 2) is None
     r1 = svc.submit("b", "s", 2, 4)
@@ -355,26 +365,26 @@ def test_plan_of_next_batch_runs_while_reconstruct_in_flight():
     assert set(r2) == {"a", "b"}
     assert set(svc.drain()) == {"c", "d"}
     assert svc.inflight == 0
-    i = log.index
-    assert i(("plan", 2)) < i(("execute", 1))
-    assert i(("gather", 2)) < i(("execute", 1))
+    at = _stage_starts(since)
+    assert at[("plan", 2)] < ex.executed_at[1]
+    assert at[("gather", 2)] < ex.executed_at[1]
     for seq in (1, 2):
-        assert (i(("plan", seq)) < i(("gather", seq))
-                < i(("reconstruct", seq)) < i(("emit", seq)))
+        assert (at[("plan", seq)] < at[("gather", seq)]
+                < at[("reconstruct", seq)] < at[("emit", seq)])
     assert svc.stats["inflight_peak"] == 2
 
 
 def test_depth1_is_the_alternating_path():
     packed, y = _prepped("std_D32")
-    log = []
-    svc = _port(max_batch_streams=2,
-                trace=lambda stage, seq: log.append((stage, seq)))
+    since = time.perf_counter()
+    svc = _port(max_batch_streams=2)
     svc.attach("s", packed)
     assert svc.submit("a", "s", 0, 2) is None
     out = svc.submit("b", "s", 2, 4)
     assert set(out) == {"a", "b"} and svc.inflight == 0
-    assert log == [("plan", 1), ("gather", 1), ("reconstruct", 1),
-                   ("emit", 1)]
+    at = _stage_starts(since)
+    assert sorted(at, key=at.get) == [("plan", 1), ("gather", 1),
+                                      ("reconstruct", 1), ("emit", 1)]
     assert svc.drain() == {}
     assert out["a"].tobytes() == y[:2 * B].tobytes()
 
@@ -779,11 +789,18 @@ def _pipelined_auto_flush(make_coal, make_svc, pack_fn):
     return answers, svc
 
 
+# the port's own families, which the reference lacks: a coalescer
+# flush's steps and its padded cells
+PORT_ONLY = {"repro_encode_flush_step_seconds",
+             "repro_encode_flush_cells_total"}
+
+
 def test_serve_families_and_spans_equal_reference():
     """One pipelined ``backend="auto"`` service run: the ``repro_serve_*``
     and ``repro_encode_flush*`` families (names, types, label sets) equal
-    the reference's after the same run, and both record the four
-    ``serve.<stage>`` spans of each flush."""
+    the reference's after the same run, besides the port's own, and both
+    record the four ``serve.<stage>`` spans of each flush (counted by an
+    exporter as they finish: the ring may evict older records meanwhile)."""
     from repro.store import Container as JaxContainer
     decode_mod.reset_autotune()
     pol = dict(max_batch_blocks=256, max_batch_streams=2)
@@ -791,31 +808,39 @@ def test_serve_families_and_spans_equal_reference():
     stages = [f"serve.{st}" for st in ("plan", "gather", "reconstruct",
                                        "emit")]
 
-    def spans(tracer):
-        return [len(tracer.records(name=n)) for n in stages]
-
-    spans0 = [spans(obs.tracer()), spans(jax_obs.tracer())]
-    got, port = _pipelined_auto_flush(
-        lambda: StreamCoalescer(policy=FlushPolicy(**pol), device="cpu",
-                                **kw),
-        lambda: _port("auto", max_batch_streams=8, pipeline_depth=2),
-        lambda blob: Container(pack(blob)))
-    want, ref = _pipelined_auto_flush(
-        lambda: JaxStreamCoalescer(policy=JaxFlushPolicy(**pol),
-                                   backend="jax", **kw),
-        lambda: JaxDecompressionService(
-            policy=JaxFlushPolicy(max_batch_streams=8, pipeline_depth=2),
-            backend="numpy"),
-        lambda blob: JaxContainer(jax_pack(blob)))
+    tracers = (obs.tracer(), jax_obs.tracer())
+    finished = ([], [])   # record names, appended from any thread
+    hooks = [lambda rec, names=names: names.append(rec.name)
+             for names in finished]
+    for t, hook in zip(tracers, hooks):
+        t.add_exporter(hook)
+    try:
+        got, port = _pipelined_auto_flush(
+            lambda: StreamCoalescer(policy=FlushPolicy(**pol), device="cpu",
+                                    **kw),
+            lambda: _port("auto", max_batch_streams=8, pipeline_depth=2),
+            lambda blob: Container(pack(blob)))
+        want, ref = _pipelined_auto_flush(
+            lambda: JaxStreamCoalescer(policy=JaxFlushPolicy(**pol),
+                                       backend="jax", **kw),
+            lambda: JaxDecompressionService(
+                policy=JaxFlushPolicy(max_batch_streams=8,
+                                      pipeline_depth=2),
+                backend="numpy"),
+            lambda blob: JaxContainer(jax_pack(blob)))
+    finally:
+        for t, hook in zip(tracers, hooks):
+            t.remove_exporter(hook)
     _same(got, want)
     assert port.stats == ref.stats
     assert port.stats["cache_hits"] >= 1
     for prefix in ("repro_serve_", "repro_encode_flush",
                    "repro_encode_streams_open"):
-        assert _families(obs.registry(), prefix) == \
+        got = _families(obs.registry(), prefix)
+        assert {k: v for k, v in got.items() if k not in PORT_ONLY} == \
             _families(jax_obs.registry(), prefix), prefix
-    grew = [[a - b for a, b in zip(spans(t), s0)]
-            for t, s0 in zip((obs.tracer(), jax_obs.tracer()), spans0)]
+    assert PORT_ONLY <= set(_families(obs.registry(), "repro_encode_flush"))
+    grew = [[names.count(n) for n in stages] for names in finished]
     assert grew[0] == grew[1] == [2, 2, 2, 2]
     text = obs.to_prometheus()
     assert obs.parse_prometheus(text)

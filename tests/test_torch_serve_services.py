@@ -558,7 +558,9 @@ def _get(reg, name, labels=None):
 
 def test_coalescer_flush_metrics_and_span():
     """A coalesced flush moves the encode flush metrics and records an
-    ``encode.flush`` span, in step with the reference's."""
+    ``encode.flush`` span, in step with the reference's (spans counted by
+    an exporter as they finish: the ring may evict older records
+    meanwhile)."""
     names = ("repro_encode_flushes_total", "repro_encode_bytes_in_total",
              "repro_encode_bytes_out_total", "repro_encode_blocks_total")
     deltas = []
@@ -571,7 +573,9 @@ def test_coalescer_flush_metrics_and_span():
                                       max_batch_streams=4),
                 mode="std", block_size=B, num_dict=8, backend="jax"))):
         before = {k: _get(reg, k) for k in names}
-        spans0 = len(tracer.records(name="encode.flush"))
+        finished = []
+        hook = lambda rec: finished.append(rec.name)  # noqa: E731
+        tracer.add_exporter(hook)
         open0 = _get(reg, "repro_encode_streams_open", {"kind": "coalesced"})
         rng = np.random.default_rng(0)
         co = make()
@@ -588,10 +592,10 @@ def test_coalescer_flush_metrics_and_span():
                     blobs[k] += seg
         for sid in list(blobs):
             blobs[sid] += co.close_stream(sid)
+        tracer.remove_exporter(hook)
         assert all(blobs.values())
         deltas.append({k: _get(reg, k) - before[k] for k in names}
-                      | {"spans": len(tracer.records(name="encode.flush"))
-                         - spans0,
+                      | {"spans": finished.count("encode.flush"),
                          "open": _get(reg, "repro_encode_streams_open",
                                       {"kind": "coalesced"}) - open0})
     assert deltas[0] == deltas[1]
