@@ -81,6 +81,16 @@ _M = {
         "mode_switches": "adaptive selector mode/scale switches applied",
     }.items()
 }
+# Blocks given the residual or delta transform, by where it ran: on the
+# host in ``IdealemSession.prepare``, or on the device in a coalescer's
+# flush (``serve/compress.py``).  std blocks count nothing.
+_M_TRANSFORM = {
+    where: obs.registry().counter(
+        "repro_encode_transform_blocks_total",
+        "blocks given the residual or delta transform, by where it ran",
+        labels={"where": where})
+    for where in ("device", "host")
+}
 # Adaptive sessions: one dispatch a feed on the batched arm, one per
 # channel on the loop arm; the cohort histogram records the channels each
 # feed's dispatches covered.
@@ -265,7 +275,9 @@ class MixedCohort:
 
 class PreparedChunk(NamedTuple):
     """Host-side staging of one feed: complete blocks cut from the chunk
-    (tails already re-buffered) with their transforms applied."""
+    (tails already re-buffered) with their transforms applied (or, from
+    ``prepare(transform=False)``, left to the caller: ``payloads`` is then
+    ``None`` and ``bases`` all ``None`` until the caller fills them)."""
 
     blocks: np.ndarray            # (C, nb, B) raw values
     payloads: np.ndarray          # (C, nb, n_lem) transformed; adaptive
@@ -598,10 +610,14 @@ class IdealemSession:
         return raw, payload, bases, z.astype(bool), z, z.astype(bool)
 
     # ------------------------------------------------------------ public API
-    def prepare(self, chunk) -> Optional[PreparedChunk]:
+    def prepare(self, chunk, transform: bool = True
+                ) -> Optional[PreparedChunk]:
         """Stage a chunk host-side: buffer the sample tails, cut complete
         blocks and apply the codec transform.  Returns ``None`` when no
         full block completed.  ``feed`` is ``prepare`` + decide +
+        ``commit``.  ``transform=False`` leaves the transform to the
+        caller (a coalescer that transforms its whole flush on the
+        device), which fills ``payloads`` and ``bases`` before
         ``commit``."""
         if self._finished:
             raise RuntimeError("session already finished")
@@ -626,11 +642,15 @@ class IdealemSession:
         if nb == 0:
             return None
         blocks = np.stack([j[: nb * B].reshape(nb, B) for j in joined])
+        if not transform:
+            return PreparedChunk(blocks, None, [None] * self._C, nb)
         payloads, bases = [], []
         for ci in range(self._C):
             p, b = self._codecs[ci]._transform(blocks[ci])
             payloads.append(p)
             bases.append(b)
+            if b is not None:
+                _M_TRANSFORM["host"].inc(nb)
         # adaptive channels may differ in payload width, so they stay a
         # ragged list; the static path stacks them for the batched scan
         stacked = payloads if self.adaptive else np.stack(payloads)

@@ -21,11 +21,14 @@ its ``FlushPolicy`` trips, cuts ONE padded device batch (streams stacked on
 the channel axis, ragged block counts masked) and scatters the encoded
 segments back per stream.  On ``backend="cuda"`` a flush is one launch of
 the fused scan K1 (``csrc/encode_step.cu``); an adaptive codec's flush is
-one launch of K1 with its ``chan`` operand.  With an encode plan
-(``StreamCoalescer(plan=...)``) the slot axis is split over the plan's
-devices: one such launch a shard, or, for a plan that splits the
-dictionary rows, one K3 launch a shard a block step.  Per-stream bytes are
-those the per-stream service would emit.
+one launch of K1 with its ``chan`` operand.  A residual or delta flush of
+float64 streams without a plan stages the raw blocks and transforms the
+whole batch on the device (``core/transforms.py``'s tensor twins, bitwise
+the host's), bringing the payload back in the flush's copy out.  With an
+encode plan (``StreamCoalescer(plan=...)``) the slot axis is split over
+the plan's devices: one such launch a shard, or, for a plan that splits
+the dictionary rows, one K3 launch a shard a block step.  Per-stream
+bytes are those the per-stream service would emit.
 
 ``DecompressionService`` is the symmetric read path: range requests
 against packed containers (``repro_torch.store``), answered from an LRU of
@@ -54,8 +57,9 @@ from ..core import IdealemCodec
 from ..core import decode as decode_mod
 from ..core.encoder import (encode_decisions_batched, init_sharded_state,
                             init_state, reset_channel)
-from ..core.session import (IdealemSession, MixedCohort, SessionStats,
-                            _mixed_matcher_name, _planned_scan)
+from ..core.session import (_M_TRANSFORM, IdealemSession, MixedCohort,
+                            SessionStats, _mixed_matcher_name, _planned_scan)
+from ..core.transforms import delta_forward, residual_forward
 from ..device import resolve_device
 from ..errors import ApiError
 from ..store import (Container, decode_channels, decode_range, gather_parts,
@@ -303,6 +307,13 @@ class StreamCoalescer:
         self._capacity = plan.padded_channels if plan is not None else capacity
         self._bucket = max(1, block_bucket)
         self._dtype = np.dtype(dtype)
+        # residual and delta float64 flushes without a plan transform on
+        # the device: std has nothing to transform, a planned flush copies
+        # each shard's slots to its own device, and another stream dtype
+        # keeps the host's NumPy arithmetic
+        self._device_transform = (plan is None
+                                  and self._codec.mode != "std"
+                                  and self._dtype == np.float64)
         self._sessions: Dict[str, IdealemSession] = {}
         self._slots: Dict[str, int] = {}
         self._free = list(range(self._capacity))[::-1]  # pop() -> lowest
@@ -495,15 +506,61 @@ class StreamCoalescer:
             _M_ENC_FLUSH_SECONDS.observe(time.perf_counter() - t0)
         return out
 
+    def _host_empty(self, shape) -> torch.Tensor:
+        """An uninitialised float64 host tensor, page-locked when the
+        codec's device is a card: the caching host allocator hands the same
+        blocks back flush after flush, and the card copies to and from
+        them at DMA speed."""
+        return torch.empty(shape, dtype=torch.float64, pin_memory=(
+            self._codec.torch_device.type == "cuda"))
+
+    def _stage(self, prepared, nb_pad: int, raw: bool):
+        """The flush's padded host batch and its mask: each stream's raw
+        float64 blocks ``(capacity, nb_pad, B)`` (``raw``; every element
+        written once, the rows past a stream's and the slots without
+        blocks as zeros), else its payloads ``(capacity, nb_pad, n_lem)``
+        as float32, the scan's input."""
+        valid = np.zeros((self._capacity, nb_pad), dtype=bool)
+        if not raw:
+            batch = np.zeros((self._capacity, nb_pad, self._codec._lem_n()),
+                             dtype=np.float32)
+            for sid, prep in prepared.items():
+                slot = self._slots[sid]
+                batch[slot, :prep.nb] = prep.payloads[0]
+                valid[slot, :prep.nb] = True
+            return batch, valid
+        batch = self._host_empty(
+            (self._capacity, nb_pad, self._codec.block_size)).numpy()
+        for sid, prep in prepared.items():
+            slot = self._slots[sid]
+            batch[slot, :prep.nb] = prep.blocks[0]
+            batch[slot, prep.nb:] = 0
+            valid[slot, :prep.nb] = True
+        batch[~valid.any(axis=1)] = 0
+        return batch, valid
+
+    def _redo_nan_blocks(self, payload, blocks, nan_rows) -> None:
+        """A NaN's bits are those of the arithmetic that made it (the
+        device's, or a vectorised ``fmod``'s), not NumPy's: the blocks whose
+        device payload holds a NaN are transformed again on the host, in
+        place, so the stream bytes are the host path's.  (The scan's
+        decisions do not depend on a NaN's bits.)"""
+        rows = np.flatnonzero(nan_rows)
+        if len(rows):
+            payload[rows] = self._codec._transform(blocks[rows])[0]
+            _M_TRANSFORM["host"].inc(len(rows))
+
     def _flush_impl(self, stream_ids: List[str]) -> Dict[str, bytes]:
         if self._adaptive:
             return self._flush_adaptive(stream_ids)
+        on_device = self._device_transform
         with _step("take"):
             taken = self._take(stream_ids)
         prepared = {}
         with _step("prepare"):
             for sid, arr in taken:
-                prep = self._sessions[sid].prepare(arr)
+                prep = self._sessions[sid].prepare(arr,
+                                                   transform=not on_device)
                 if prep is not None:
                     prepared[sid] = prep
         if not prepared:
@@ -511,17 +568,12 @@ class StreamCoalescer:
 
         cdc = self._codec
         n_lem = cdc._lem_n()
-        _M_ENC_FLUSH_BLOCKS.observe(sum(p.nb for p in prepared.values()))
+        n_blocks = sum(p.nb for p in prepared.values())
+        _M_ENC_FLUSH_BLOCKS.observe(n_blocks)
         nb_pad = self._nb_pad(prepared)
         _M_ENC_FLUSH_CELLS.inc(self._capacity * nb_pad)
         with _step("stage"):
-            batch = np.zeros((self._capacity, nb_pad, n_lem),
-                             dtype=np.float32)
-            valid = np.zeros((self._capacity, nb_pad), dtype=bool)
-            for sid, prep in prepared.items():
-                slot = self._slots[sid]
-                batch[slot, :prep.nb] = prep.payloads[0]
-                valid[slot, :prep.nb] = True
+            batch, valid = self._stage(prepared, nb_pad, raw=on_device)
 
         plan = self.plan
         # with a plan each shard copies its own slots to its device
@@ -551,15 +603,35 @@ class StreamCoalescer:
             bt = torch.as_tensor(batch, device=dev)
             vt = torch.as_tensor(valid, device=dev)
         with _step("scan"):
+            if on_device:
+                # the whole batch's transform, bitwise the host's (see
+                # core/transforms.py); the scan decides on its float32 cast
+                fwd = delta_forward if cdc.mode == "delta" else \
+                    residual_forward
+                payload = fwd(bt, cdc.value_range)[1]
+                bt = payload.to(torch.float32)
+                payload = payload[:, :max(p.nb for p in prepared.values())]
+                nan_rows = torch.isnan(payload).any(dim=-1)
+                _M_TRANSFORM["device"].inc(n_blocks)
             (h, s, o), self._state = scan(bt, state=self._state, valid=vt,
                                           **kw)
         with _step("d2h"):
             h, s, o = (v.cpu().numpy() for v in (h, s, o))  # the one sync
+            if on_device:
+                payload = self._host_empty(payload.shape).copy_(
+                    payload).numpy()
+                nan_rows = nan_rows.cpu().numpy()
 
         with _step("commit"):
             out = {}
             for sid, prep in prepared.items():
                 slot, nb = self._slots[sid], prep.nb
+                if on_device:
+                    self._redo_nan_blocks(payload[slot, :nb], prep.blocks[0],
+                                          nan_rows[slot, :nb])
+                    prep = prep._replace(
+                        payloads=payload[slot:slot + 1, :nb],
+                        bases=[prep.blocks[0][:, 0].copy()])
                 dec = (h[slot, :nb], s[slot, :nb], o[slot, :nb])
                 out[sid] = self._sessions[sid].commit(prep, [dec])[0]
         return out
